@@ -8,11 +8,17 @@ Phases, each of which must pass:
 2. kernel parity: both lanes of the kernel (2-bit and 4-bit class ids)
    against the plain PyTorch version on the same CUDA tensors and against
    the C++ scalar aligner, on a 13-spec matrix of adapter kinds and flags
-   at 1024 reads x 128 bp and 1024 reads x 512 bp, and on three 200 bp
-   adapters (1024 reads x 256 bp) whose DP column does not fit in shared
-   memory and lives in a device scratch buffer. Results are integers:
-   `found` must agree everywhere, query start/stop, errors and score
-   wherever a match was found (tolerance: exact);
+   and on 9 adapters whose DP rows end at the flagship layout's lane
+   blocks (lanes x rows - 1, lanes x rows, lanes x rows + 1), at
+   1024 reads x 128 bp and 1024 reads x 512 bp; on two adapters of
+   lanes x rows - 1 bp for each register variant (lanes, rows) of the
+   kernel, at 1024 reads of at least twice their length; on three 200 bp
+   adapters and a 300 bp one (rows in shared memory) at 1024 reads x
+   512 bp; and on a 4,000 bp one (rows in device scratch) at 64 reads x
+   512 bp. Every instantiation of the kernel in the library must have run
+   here. Results are integers: `found` must agree everywhere, query
+   start/stop, errors and score wherever a match was found (tolerance:
+   exact);
 3. main path: flagship single-end 3' trimming of the TruSeq adapter,
    524,288 reads of 100 bp in 4 chunks of 131,072 through
    BatchPipelineEngine and process_chunks_pipelined on the card; output
@@ -25,8 +31,8 @@ Phases, each of which must pass:
 Launch counters are set to 0 just before the main path's warm pass (and
 before the dirty phase) and read just after; each kernel must have been
 launched there. Prints the card's name and power limit, one JSON line
-with every kernel's numbers, and as the last line
-{"ok": true, "device": {...}}.
+with every kernel's numbers (time, bound and time / bound at every shape
+the path launched), and as the last line {"ok": true, "device": {...}}.
 
 The workload and the parity matrix come from tests/torch_fixtures.py.
 Run from the repository root: python3 chip_smoke.py
@@ -34,6 +40,7 @@ Run from the repository root: python3 chip_smoke.py
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,8 +52,10 @@ N_READS = 524288
 N_DIRTY_READS = 262144
 PARITY_READS = 1024
 PARITY_LENGTHS = (128, 512)
-# reads for the 200 bp adapters, whose DP column lives in device scratch
-PARITY_LONG_LENGTH = 256
+# reads for the adapters past the flagship's width (long_specs)
+PARITY_LONG_LENGTH = 512
+# reads of the 4,000 bp adapter (its scalar check is the slow part)
+PARITY_VERY_LONG_READS = 64
 TIMED_PASSES = 3
 # HBM3 rate of the H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -90,20 +99,53 @@ def nvidia_smi(query: str, units: bool = True) -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, from CUDA events."""
+def cuda_ms(fn, reps: int, graph: bool = False) -> float:
+    """Mean time of fn() over reps launches, from CUDA events around the
+    stream. With graph=True the reps calls are captured in a CUDA graph
+    and replayed, so that the host's cost per call (the Python wrapper,
+    ctypes) leaves no gaps between launches and the events see device
+    time alone; fn must not synchronise then."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+    else:
+        start.record()
+        for _ in range(reps):
+            fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds per call of fn(), without waiting for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 class Recorder:
@@ -133,29 +175,63 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def ptxas_summary(log_text: str):
+    """One line per compiled kernel variant from nvcc's -Xptxas -v log:
+    (BITS, lanes, rows, mode) and its registers, stack and spills."""
+    out, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"locate_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", line)
+        if m and "Compiling entry" in line:
+            cur = dict(variant="<{}>".format(",".join(m.groups())))
+            out.append(cur)
+        elif cur is not None:
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers")):
+                hit = re.search(pat, line)
+                if hit:
+                    cur[key] = int(hit.group(1))
+    return out
+
+
+def parity_cases():
+    """(read length, reads, spec, where random_batch puts the adapter)
+    of the parity matrix."""
+    import torch_fixtures as fx
+
+    cases = [(L, PARITY_READS, spec, {}) for L in PARITY_LENGTHS
+             for spec in fx.parity_specs()]
+    cases += [(L, PARITY_READS, spec, fx.placement(spec))
+              for L in PARITY_LENGTHS for spec in fx.block_edge_specs()]
+    cases += [(fx.variant_read_length(spec), PARITY_READS, spec,
+               fx.placement(spec)) for spec in fx.variant_specs()]
+    cases += [(PARITY_LONG_LENGTH, PARITY_READS, spec, {})
+              for spec in fx.long_specs()]
+    cases.append((PARITY_LONG_LENGTH, PARITY_VERY_LONG_READS,
+                  fx.very_long_spec(), {}))
+    return cases
+
+
 def parity_phase():
+    """Both lanes on every case against the plain version and the scalar
+    aligner; every instantiation of the kernel must run. Returns the
+    worst error per lane."""
     import torch
 
     import torch_fixtures as fx
     from cutadapt_tpu_torch.ops import align_cuda
 
-    threads = align_cuda._library().align_locate_threads()
     rng = np.random.RandomState(20260816)
     worst = {True: 0, False: 0}
     runs = 0
+    align_cuda.reset_launch_counters()
     t0 = time.perf_counter()
-    # (read length, spec, whether its DP column lives in device scratch)
-    cases = [(L, spec, False) for L in PARITY_LENGTHS
-             for spec in fx.parity_specs()]
-    cases += [(PARITY_LONG_LENGTH, spec, True) for spec in fx.long_specs()]
-    for L, spec, want_scratch in cases:
+    for L, B, spec, place in parity_cases():
         tables = align_cuda.make_tables(spec)
-        _, scratch = align_cuda.dp_layout(tables, threads)
-        if bool(scratch) != want_scratch:
-            fail(f"a {len(spec.reference)} bp adapter keeps its DP column in "
-                 f"{'device scratch' if scratch else 'shared memory'}")
+        lay = align_cuda.kernel_layout(tables.m)
         for pack2 in (True, False):
-            raw, enc, lens = fx.random_batch(spec, rng, PARITY_READS, L, pack2)
+            raw, enc, lens = fx.random_batch(spec, rng, B, L, pack2, **place)
             enc_d = torch.from_numpy(enc).cuda()
             len_d = torch.from_numpy(lens).cuda()
             got = align_cuda.locate_packed(enc_d, len_d, tables, pack2)
@@ -167,8 +243,8 @@ def parity_phase():
             label = (f"{spec.reference[:12]}.. m={len(spec.reference)} "
                      f"flags={spec.flags} e={spec.max_error_rate} "
                      f"ic={spec.indel_cost} mo={spec.min_overlap} L={L} "
-                     f"{'2-bit' if pack2 else '4-bit'}"
-                     f"{' scratch' if scratch else ''}")
+                     f"{'2-bit' if pack2 else '4-bit'} "
+                     f"[{lay.lanes} lanes x {lay.rows} rows, {lay.mode}]")
             for other, name in ((p, "plain PyTorch"), (s, "scalar C++")):
                 diff = fx.first_difference(g, other)
                 if diff is not None:
@@ -177,8 +253,13 @@ def parity_phase():
             worst[pack2] = max(worst[pack2], max_abs_err(g, p))
             runs += 1
             log(f"  parity {label}: ok ({int(g[0].sum())} matches)")
-    log(f"kernel parity: all {runs} runs agree "
-        f"({time.perf_counter() - t0:.1f} s)")
+    ran = set(align_cuda.VARIANT_LAUNCHES)
+    missing = align_cuda.instantiations() - ran
+    if missing or ran - align_cuda.instantiations():
+        fail(f"the parity matrix did not run the instantiations "
+             f"{sorted(missing)} (ran {sorted(ran)})")
+    log(f"kernel parity: all {runs} runs agree, all {len(ran)} "
+        f"instantiations ran ({time.perf_counter() - t0:.1f} s)")
     return worst
 
 
@@ -288,51 +369,81 @@ def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2: bool):
     return cols, cells, eq_cells, ops
 
 
+def bound_of(enc, lens, tables, pack2, clock_hz, sms):
+    """The least time the card needs for one launch on these inputs: the
+    larger of the integer operations the data needs (dp_work) at the
+    card's int32 rate and the bytes moved (inputs read once, the result
+    written once) at its memory rate. Returns (ms, "operations" or
+    "bytes", dp_work's tuple)."""
+    work = dp_work(enc.cpu().numpy(), lens.cpu().numpy(), tables, pack2)
+    ops_s = work[3] / (sms * INT32_LANES_PER_SM * clock_hz)
+    nbytes = enc.numel() + 4 * enc.shape[0] + 4 * len(tables.table) \
+        + 8 * enc.shape[0]
+    bytes_s = nbytes / PEAK_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes", work)
+
+
 def kernel_numbers(rec, pack2, clock_hz, sms):
-    """Kernel and plain times at the path's largest dispatch shape of a
-    lane, its bound, and the device time of all the run's launches."""
+    """Kernel time, bound and time / bound at every dispatch shape of a
+    lane the path launched; the plain version's time and the error at the
+    largest; the device time of all the run's launches."""
     import torch_fixtures as fx
     from cutadapt_tpu_torch.ops import align_cuda
 
-    shapes = sorted(k for k in rec.inputs if k[0] == pack2)
+    shapes = sorted((k for k in rec.inputs if k[0] == pack2),
+                    key=lambda s: -s[1])
     if not shapes:
         fail(f"no {'2-bit' if pack2 else '4-bit'} launch was recorded")
-    per_shape = {}
+    per_shape = []
     for key in shapes:
         enc, lens, tables = rec.inputs[key]
-        per_shape[key] = cuda_ms(
-            lambda: align_cuda.locate_packed(enc, lens, tables, pack2), 20
-        )
-    key = max(shapes, key=lambda s: s[1])
-    enc, lens, tables = rec.inputs[key]
+
+        def call():
+            return align_cuda.locate_packed(enc, lens, tables, pack2)
+
+        ms = cuda_ms(call, 20, graph=True)
+        bound_ms, bound_by, work = bound_of(enc, lens, tables, pack2,
+                                            clock_hz, sms)
+        per_shape.append(dict(
+            shape=[key[1], key[2]], launches=rec.calls.count(key), ms=ms,
+            bound_ms=bound_ms, bound_by=bound_by, x_bound=ms / bound_ms,
+            stream_ms=cuda_ms(call, 20), host_us_per_call=host_us(call, 20),
+            dp_cells=work[1], dp_columns=work[0],
+            match_share=work[2] / max(work[1], 1),
+            ops_per_cell=work[3] / max(work[1], 1),
+        ))
+    top = per_shape[0]
+    enc, lens, tables = rec.inputs[shapes[0]]
     got = align_cuda.locate_packed(enc, lens, tables, pack2)
     plain = align_cuda.locate_reference(enc, lens, tables, pack2)
     g = align_cuda.unpack_result(got.cpu().numpy())
     p = align_cuda.unpack_result(plain.cpu().numpy())
     diff = fx.first_difference(g, p)
     if diff is not None:
-        fail(f"kernel vs plain at the path's shape {key}: {diff}")
-    err = max_abs_err(g, p)
+        fail(f"kernel vs plain at the path's shape {shapes[0]}: {diff}")
     plain_ms = cuda_ms(
         lambda: align_cuda.locate_reference(enc, lens, tables, pack2), 2
     )
-    cols, cells, eq_cells, ops = dp_work(
-        enc.cpu().numpy(), lens.cpu().numpy(), tables, pack2
-    )
-    ops_s = ops / (sms * INT32_LANES_PER_SM * clock_hz)
-    nbytes = enc.numel() + 4 * enc.shape[0] + 4 * len(tables.table) \
-        + 8 * enc.shape[0]
-    bytes_s = nbytes / PEAK_BYTES_PER_S
-    run_ms = sum(per_shape[c] for c in rec.calls if c[0] == pack2)
+    lay = align_cuda.kernel_layout(tables.m)
     return dict(
-        shape=[key[1], key[2]], ms=per_shape[key], plain_ms=plain_ms,
-        bound_ms=max(ops_s, bytes_s) * 1e3,
-        bound_by="operations" if ops_s >= bytes_s else "bytes",
-        max_abs_err=err, dp_cells=cells, dp_columns=cols,
-        match_share=eq_cells / max(cells, 1), ops_per_cell=ops / max(cells, 1),
-        run_kernel_ms=run_ms,
-        per_shape_ms={f"{s[1]}x{s[2]}": v for s, v in per_shape.items()},
+        shape=top["shape"], ms=top["ms"], plain_ms=plain_ms,
+        bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+        max_abs_err=max_abs_err(g, p), per_shape=per_shape,
+        run_kernel_ms=sum(d["ms"] * d["launches"] for d in per_shape),
+        lanes=lay.lanes, rows=lay.rows, mode=lay.mode,
     )
+
+
+def shape_line(nums) -> str:
+    return "; ".join(
+        f"{d['shape'][0]}x{d['shape'][1]}: {d['ms']:.4f} ms, bound "
+        f"{d['bound_ms']:.5f} ms ({d['bound_by']}), {d['x_bound']:.2f}x, "
+        f"{d['launches']} launches, {d['stream_ms']:.4f} ms per launch "
+        f"back to back on the stream ({d['host_us_per_call']:.1f} us of "
+        f"host time per call), {d['dp_cells']} cells, "
+        f"{d['ops_per_cell']:.3f} ops/cell"
+        for d in nums["per_shape"])
 
 
 def main() -> int:
@@ -370,9 +481,18 @@ def main() -> int:
     info = align_cuda.BUILD_INFO
     log(f"kernel library built in {info['seconds']:.1f} s "
         f"({'cached' if info['cached'] else 'nvcc'}): {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    variants = ptxas_summary(info["log"])
+    for v in variants:
+        log(f"  ptxas: locate_kernel{v['variant']} (bits, lanes, rows, mode):"
+            f" {v.get('registers')} registers, {v.get('stack')} bytes stack,"
+            f" {v.get('spill_stores')}/{v.get('spill_loads')} bytes spill "
+            f"stores/loads")
+    compiled = {tuple(int(x) for x in v["variant"][1:-1].split(","))
+                for v in variants}
+    if info["log"] and compiled != align_cuda.instantiations():
+        fail(f"nvcc compiled the instantiations {sorted(compiled)}, the "
+             f"wrapper's kernel_layout picks "
+             f"{sorted(align_cuda.instantiations())}")
 
     # 2. kernel parity
     worst = parity_phase()
@@ -407,14 +527,11 @@ def main() -> int:
         f"(sum {sum(stages.values()):.1f})")
     k2 = kernel_numbers(rec_main, True, clock_mhz * 1e6, sms)
     log(f"main path: median {rps:.1f} reads/s over {TIMED_PASSES} passes; "
-        f"2-bit kernel {k2['ms']:.4f} ms at {k2['shape']} "
-        f"(per shape {k2['per_shape_ms']}), device kernel time per pass "
-        f"{k2['run_kernel_ms']:.3f} ms = "
-        f"{k2['run_kernel_ms'] / 1e3 * rps / N_READS * 100:.2f}% of the "
-        f"pass wall time; plain {k2['plain_ms']:.3f} ms; bound "
-        f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}, {k2['dp_cells']} DP "
-        f"cells, {k2['match_share']:.4f} of them matching, "
-        f"{k2['ops_per_cell']:.3f} operations per cell)")
+        f"2-bit kernel ({k2['lanes']} lanes x {k2['rows']} rows per read) "
+        f"{shape_line(k2)}; device kernel time per pass "
+        f"{k2['run_kernel_ms']:.4f} ms = "
+        f"{k2['run_kernel_ms'] / 1e3 * rps / N_READS * 100:.3f}% of the "
+        f"pass wall time; plain {k2['plain_ms']:.3f} ms")
 
     # 4. dirty lane
     dirty = fx.add_ns(fx.make_dataset(N_DIRTY_READS, seed=777), 0.05)
@@ -424,9 +541,8 @@ def main() -> int:
     if launches_dirty["pack4"] <= 0:
         fail("dirty lane: the 4-bit kernel lane was never launched")
     k4 = kernel_numbers(rec_dirty, False, clock_mhz * 1e6, sms)
-    log(f"dirty lane: 4-bit kernel {k4['ms']:.4f} ms at {k4['shape']}; "
-        f"plain {k4['plain_ms']:.3f} ms; bound {k4['bound_ms']:.5f} ms "
-        f"({k4['bound_by']})")
+    log(f"dirty lane: 4-bit kernel {shape_line(k4)}; plain "
+        f"{k4['plain_ms']:.3f} ms")
 
     src = "cutadapt_tpu_torch/csrc/align_locate.cu"
     kernels = []
@@ -441,7 +557,11 @@ def main() -> int:
             max_abs_err=max(worst[pack2], nums["max_abs_err"]),
             ms=nums["ms"], plain_ms=nums["plain_ms"],
             bound_ms=nums["bound_ms"], bound_by=nums["bound_by"],
-            library_ms=None, shape=nums["shape"],
+            library_ms=None, shape=nums["shape"], lanes=nums["lanes"],
+            rows=nums["rows"], per_shape=[
+                {key: d[key] for key in ("shape", "launches", "ms",
+                                         "bound_ms", "bound_by", "x_bound")}
+                for d in nums["per_shape"]],
         ))
     log(f"reads_per_sec {rps}")
     print(json.dumps({"kernels": kernels}), flush=True)

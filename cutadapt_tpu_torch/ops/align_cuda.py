@@ -16,6 +16,18 @@ Queries arrive as (B, Wp) uint8 rows of query class ids
 (``pack2=True``), or two 4-bit ids per byte, low nibble first. Bytes past
 a read's length are zero and masked by the length.
 
+The kernel is a wavefront: a group of L lanes holds one read, lane l owns
+a block of r DP rows and runs column j at step j + l, handing the
+in-column deletion cascade, the query class and a row mask of the cells
+within the error budget down to the next lane. What bounds it is integer
+ALU work per DP cell; for small launches, the length of one group's chain
+of dependent cells (columns + lanes - 1 steps of r cells). Ukkonen's band
+update needs the whole column, so the lane that holds row m resolves it
+late, from the row mask. :func:`kernel_layout` picks the variant from the
+adapter length alone: rows in registers for up to 256 DP rows, in shared
+memory beyond, in a device scratch buffer past what a block's shared
+memory holds.
+
 :func:`locate_packed` dispatches on the tensors' device: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs
 :func:`locate_reference`. There is no fallback from one to the other.
@@ -34,6 +46,7 @@ import tempfile
 import threading
 import time
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -68,9 +81,18 @@ NVCC_FLAGS = (
 )
 # dynamic shared memory one block may use on Hopper
 _SMEM_LIMIT = 232448
+# threads per block (csrc/align_locate.cu:kThreads)
+THREADS = 128
+# lanes per read of the register variants, and their most rows per lane
+LANE_WIDTHS = (8, 16, 32)
+REG_ROWS_MAX = 8
+# where a lane keeps its rows (csrc/align_locate.cu:Mode)
+MODES = ("registers", "shared", "scratch")
 
 # kernel launches per lane; only the wrapper's launch path adds to them
 LAUNCHES = {"pack2": 0, "pack4": 0}
+# the same launches by instantiation (template_args), beside LAUNCHES
+VARIANT_LAUNCHES = {}
 # how the kernel library was obtained: path, build seconds, nvcc log
 BUILD_INFO = {}
 
@@ -95,6 +117,7 @@ def unpack_result(arr: np.ndarray):
 def reset_launch_counters() -> None:
     for lane in LAUNCHES:
         LAUNCHES[lane] = 0
+    VARIANT_LAUNCHES.clear()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -257,23 +280,74 @@ def _library():
             lib.align_locate_threads.argtypes = []
             lib.align_locate_launch.restype = ci
             lib.align_locate_launch.argtypes = (
-                [ci] + [vp] * 5 + [ci] * 10 + [ctypes.c_longlong, vp]
+                [ci] * 4 + [vp] * 5 + [ci] * 10 + [ctypes.c_longlong, vp]
             )
+            if lib.align_locate_threads() != THREADS:
+                raise RuntimeError(
+                    f"kernel library has {lib.align_locate_threads()} "
+                    f"threads per block, the wrapper expects {THREADS}"
+                )
             _LIB = lib
     return _LIB
 
 
-def dp_layout(tables: LocateTables, threads: int):
-    """Where a block keeps its threads' (m+1)-row cost/score/origin
-    columns: returns (dynamic shared-memory bytes, device scratch words
-    per block). Scratch is 0 when the columns fit in shared memory beside
-    the tables; otherwise (adapters longer than about 150 bp) shared
-    memory holds the tables only."""
-    smem = 4 * len(tables.table)
-    dp_words = 3 * (tables.m + 1) * threads
-    if smem + 4 * dp_words <= _SMEM_LIMIT:
-        return smem + 4 * dp_words, 0
-    return smem, dp_words
+class KernelLayout(NamedTuple):
+    """One kernel variant: lanes per read, DP rows per lane, where a lane
+    keeps its rows, dynamic shared-memory bytes per block and device
+    scratch words per block."""
+
+    lanes: int
+    rows: int
+    mode: str
+    smem_bytes: int
+    scratch_words: int
+
+
+def kernel_layout(m: int) -> KernelLayout:
+    """The kernel variant for an adapter of length m, from m alone.
+
+    Lane l owns rows [l * rows, (l + 1) * rows) of the m + 1 DP rows. The
+    fewest lanes whose rows fit in REG_ROWS_MAX registers each: shared
+    memory then holds only the final column for the last lane's scan.
+    Past 256 rows, 32 lanes keep their rows and row masks in shared memory
+    ([q][c,s,o][thread], then [word][thread] 64-bit mask words), or in a
+    device scratch buffer of that layout when a block's share does not
+    fit."""
+    R = m + 1
+    for lanes in LANE_WIDTHS:
+        rows = -(-R // lanes)
+        if rows <= REG_ROWS_MAX:
+            return KernelLayout(lanes, rows, "registers",
+                                4 * 3 * rows * THREADS, 0)
+    lanes = LANE_WIDTHS[-1]
+    rows = -(-R // lanes)
+    mask_words = -(-(lanes * rows) // 64)
+    words = THREADS * (3 * rows + 2 * mask_words)
+    if 4 * words <= _SMEM_LIMIT:
+        return KernelLayout(lanes, rows, "shared", 4 * words, 0)
+    return KernelLayout(lanes, rows, "scratch", 0, words)
+
+
+def template_args(bits: int, lay: KernelLayout) -> tuple:
+    """The instantiation locate_kernel<BITS, L, RR, MODE> that runs
+    ``lay`` in the ``bits`` lane (RR is 0 where the rows per lane are a
+    runtime argument)."""
+    registers = lay.mode == "registers"
+    return (bits, lay.lanes, lay.rows if registers else 0,
+            MODES.index(lay.mode))
+
+
+def instantiations() -> frozenset:
+    """Every instantiation the kernel library holds: the variants that
+    kernel_layout picks for some m, in both lanes. Register variants end
+    at LANE_WIDTHS[-1] * REG_ROWS_MAX DP rows; the memory modes take
+    every m beyond."""
+    top = LANE_WIDTHS[-1] * REG_ROWS_MAX
+    lays = {kernel_layout(m) for m in range(1, top)}
+    lays.add(kernel_layout(top))
+    lays.add(kernel_layout(_SMEM_LIMIT))
+    return frozenset(template_args(bits, lay) for bits in (2, 4)
+                     for lay in lays)
 
 
 def _launch(enc, lengths, tables: LocateTables, pack2: bool):
@@ -283,28 +357,29 @@ def _launch(enc, lengths, tables: LocateTables, pack2: bool):
     if B == 0:
         return out
     tab = tables.on(enc.device)
-    threads = lib.align_locate_threads()
-    smem, dp_words = dp_layout(tables, threads)
+    lay = kernel_layout(tables.m)
     scratch = None
-    if dp_words:  # long adapters: the DP columns live in device memory
-        blocks = (B + threads - 1) // threads
+    if lay.scratch_words:  # very long adapters: rows in device memory
+        blocks = -(-B // (THREADS // lay.lanes))
         scratch = torch.empty(
-            blocks * dp_words, dtype=torch.int32, device=enc.device
+            blocks * lay.scratch_words, dtype=torch.int32, device=enc.device
         )
     spec = tables.spec
     with torch.cuda.device(enc.device):
         stream = torch.cuda.current_stream(enc.device).cuda_stream
         err = lib.align_locate_launch(
-            2 if pack2 else 4, enc.data_ptr(), lengths.data_ptr(),
-            tab.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
+            2 if pack2 else 4, lay.lanes, lay.rows, MODES.index(lay.mode),
+            enc.data_ptr(), lengths.data_ptr(), tab.data_ptr(),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
             B, Wp, tables.m, tables.k, int(spec.flags),
             int(spec.indel_cost), int(spec.min_overlap), tables.eff_len,
-            int(spec.wildcard_ref), tables.n_minlen, smem, stream,
+            int(spec.wildcard_ref), tables.n_minlen, lay.smem_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"align_locate kernel launch failed: CUDA error {err}")
     LAUNCHES["pack2" if pack2 else "pack4"] += 1
+    key = template_args(2 if pack2 else 4, lay)
+    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
     return out
 
 

@@ -11,6 +11,7 @@ tests/test_torch_cuda.py and by chip_smoke.py.
 """
 
 import os
+import re
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -101,17 +102,9 @@ def test_locate_reference_long_reads():
         assert fx.first_difference(got, xla) is None
 
 
-@pytest.mark.parametrize("pack2", [False, True], ids=["4bit", "2bit"])
-@pytest.mark.parametrize(
-    "index", range(len(fx.long_specs())),
-    ids=[f"{i}-{s.flags}" for i, s in enumerate(fx.long_specs())],
-)
-def test_long_adapter_matches_jax_and_scalar(index, pack2):
-    """200 bp adapters (the kernel keeps their DP column in device
-    scratch) against the XLA aligner and the C++ scalar aligner."""
-    spec = fx.long_specs()[index]
-    rng = np.random.RandomState(31 + index)
-    raw, enc, lens = fx.random_batch(spec, rng, 24, 256, pack2)
+def _against_xla_and_scalar(spec, seed, B, L, pack2, at_start=False):
+    rng = np.random.RandomState(seed)
+    raw, enc, lens = fx.random_batch(spec, rng, B, L, pack2, at_start)
     got = align_cuda.locate(spec, enc, lens, pack2=pack2, device="cpu")
     got = align_cuda.unpack_result(got.numpy())
     assert got[0].any()
@@ -125,19 +118,106 @@ def test_long_adapter_matches_jax_and_scalar(index, pack2):
     assert fx.first_difference(got, fx.scalar_locate(spec, raw, lens)) is None
 
 
-def test_dp_layout_moves_long_adapters_to_scratch():
-    threads = 128
-    for spec in fx.parity_specs() + CASES:
-        tables = align_cuda.make_tables(spec)
-        smem, scratch = align_cuda.dp_layout(tables, threads)
-        assert scratch == 0
-        assert smem == 4 * (len(tables.table) + 3 * (tables.m + 1) * threads)
-        assert smem <= align_cuda._SMEM_LIMIT
-    for spec in fx.long_specs():
-        tables = align_cuda.make_tables(spec)
-        smem, scratch = align_cuda.dp_layout(tables, threads)
-        assert smem == 4 * len(tables.table)
-        assert scratch == 3 * (tables.m + 1) * threads
+@pytest.mark.parametrize("pack2", [False, True], ids=["4bit", "2bit"])
+@pytest.mark.parametrize(
+    "index", range(len(fx.long_specs())),
+    ids=[f"{i}-{s.flags}" for i, s in enumerate(fx.long_specs())],
+)
+def test_long_adapter_matches_jax_and_scalar(index, pack2):
+    """200 bp adapters (32 lanes of 7 rows in registers) and a 300 bp one
+    (rows in shared memory) against the XLA aligner and the C++ scalar
+    aligner."""
+    _against_xla_and_scalar(fx.long_specs()[index], 31 + index, 24, 256,
+                            pack2)
+
+
+@pytest.mark.parametrize("pack2", [False, True], ids=["4bit", "2bit"])
+@pytest.mark.parametrize(
+    "index", range(len(fx.block_edge_specs())),
+    ids=[f"{i}-{len(s.reference)}-{s.flags}"
+         for i, s in enumerate(fx.block_edge_specs())],
+)
+def test_block_edge_adapters_match_jax_and_scalar(index, pack2):
+    """Adapters whose DP rows end at the flagship layout's lane blocks
+    against the XLA aligner and the C++ scalar aligner."""
+    spec = fx.block_edge_specs()[index]
+    _against_xla_and_scalar(spec, 60 + index, 64, 96, pack2,
+                            at_start=not spec.start_in_query)
+
+
+def test_kernel_layout_follows_the_adapter_length():
+    """Every DP row is owned by exactly one lane; rows stay in registers,
+    at most REG_ROWS_MAX per lane with the fewest lanes that allow it,
+    then go to shared memory, then to device scratch; shared memory stays
+    under the block limit."""
+    modes = set()
+    for m in list(range(1, 401)) + [3615, 3616, 4000, 20000]:
+        lay = align_cuda.kernel_layout(m)
+        R = m + 1
+        assert lay.rows == -(-R // lay.lanes)
+        owners = [[l for l in range(lay.lanes)
+                   if l * lay.rows <= i < (l + 1) * lay.rows]
+                  for i in range(R)]
+        assert all(len(o) == 1 for o in owners)
+        assert owners[0] == [0] and owners[m] == [m // lay.rows]
+        lanes = next((L for L in align_cuda.LANE_WIDTHS
+                      if -(-R // L) <= align_cuda.REG_ROWS_MAX), None)
+        if lanes is not None:
+            assert (lay.lanes, lay.mode) == (lanes, "registers")
+            assert lay.smem_bytes == 4 * 3 * lay.rows * align_cuda.THREADS
+            assert lay.scratch_words == 0
+        else:
+            assert lay.lanes == 32 and lay.mode in ("shared", "scratch")
+            words = align_cuda.THREADS * (3 * lay.rows
+                                          + 2 * -(-32 * lay.rows // 64))
+            fits = 4 * words <= align_cuda._SMEM_LIMIT
+            assert lay.mode == ("shared" if fits else "scratch")
+            assert (lay.smem_bytes, lay.scratch_words) == (
+                (4 * words, 0) if fits else (0, words))
+        assert lay.smem_bytes <= align_cuda._SMEM_LIMIT
+        modes.add(lay.mode)
+    assert modes == set(align_cuda.MODES)
+    assert align_cuda.kernel_layout(255).mode == "registers"
+    assert align_cuda.kernel_layout(256).mode == "shared"
+    assert align_cuda.kernel_layout(3615).mode == "shared"
+    assert align_cuda.kernel_layout(3616).mode == "scratch"
+    for spec in fx.parity_specs() + CASES + fx.block_edge_specs():
+        assert align_cuda.kernel_layout(len(spec.reference)).mode \
+            == "registers"
+    assert [align_cuda.kernel_layout(len(s.reference)).mode
+            for s in fx.long_specs()] == ["registers"] * 3 + ["shared"]
+    assert align_cuda.kernel_layout(
+        len(fx.very_long_spec().reference)).mode == "scratch"
+
+
+def test_kernel_source_instantiates_what_the_layout_picks():
+    """The library's dispatch (csrc/align_locate.cu) instantiates exactly
+    the variants kernel_layout picks for some m: none is missing, and none
+    is compiled that no adapter length reaches."""
+    with open(align_cuda._SRC) as f:
+        src = f.read()
+    regs = {(int(L), int(R)) for L, R in
+            re.findall(r"ALIGN_VARIANT\((\d+), (\d+)\)", src)}
+    mem = {(int(L), align_cuda.MODES.index(mode.lower())) for L, mode in
+           re.findall(r"launch<BITS, (\d+), 0, k(Shared|Scratch)>", src)}
+    got = {(bits, L, R, 0) for L, R in regs for bits in (2, 4)}
+    got |= {(bits, L, 0, mode) for L, mode in mem for bits in (2, 4)}
+    assert got == align_cuda.instantiations()
+    assert len(got) == 36
+
+
+def test_parity_fixtures_reach_every_instantiation():
+    """The adapters that chip_smoke.py and the card tests run take every
+    instantiation of the kernel, in both lanes."""
+    specs = fx.variant_specs() + fx.long_specs() + [fx.very_long_spec()]
+    reached = {align_cuda.template_args(
+        bits, align_cuda.kernel_layout(len(s.reference)))
+        for s in specs for bits in (2, 4)}
+    assert reached == align_cuda.instantiations()
+    for s in fx.variant_specs():
+        lay = align_cuda.kernel_layout(len(s.reference))
+        assert lay.lanes * lay.rows == len(s.reference) + 1
+        assert fx.variant_read_length(s) >= 2 * len(s.reference)
 
 
 @pytest.mark.parametrize("pack2", [False, True], ids=["4bit", "2bit"])
@@ -206,6 +286,24 @@ def test_byte_lane_is_not_ported():
     assert query_class_info(spec) is None
     with pytest.raises(NotImplementedError, match="byte lane"):
         align_cuda.make_tables(spec)
+
+
+def test_kernel_ab_loads_another_trees_own_wrapper(monkeypatch):
+    """kernel_ab.py imports another checkout's wrapper under its own
+    package name, beside this one's, and needs a card to run."""
+    import sys
+
+    import kernel_ab
+
+    root = os.path.dirname(os.path.dirname(align_cuda._CSRC))
+    other = kernel_ab.load_wrapper(root, "ab_test_tree")
+    assert other.__name__ == "ab_test_tree.ops.align_cuda"
+    assert other is not align_cuda
+    assert other.LAUNCHES is not align_cuda.LAUNCHES
+    assert other.kernel_layout(33) == align_cuda.kernel_layout(33)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["kernel_ab.py", root])
+    assert kernel_ab.main() == 2
 
 
 def test_kernel_build_flags():

@@ -21,8 +21,12 @@ The parity matrix holds the batched aligner to other forms of the same
 contract: 13 adapter specs spanning the adapter kinds and flag sets, and
 a generator of random read batches with spliced, mutated adapter copies,
 both those of the JAX package's on-device check
-(tools/verify_pallas_tpu.py:18-78); :func:`long_specs` adds adapters too
-long for the kernel's shared-memory layout. Results compare as ``found``
+(tools/verify_pallas_tpu.py:18-78). :func:`block_edge_specs` adds adapters
+whose DP rows end at, just before and just after the flagship layout's
+lane blocks, :func:`variant_specs` one adapter for each register variant
+of the kernel, :func:`long_specs` adapters of 200 bp (a 32-lane register
+variant) and 300 bp (rows in shared memory), :func:`very_long_spec` one
+whose rows live in device scratch. Results compare as ``found``
 everywhere and query start/stop, errors and score where found: the other
 fields are undefined where nothing was found.
 """
@@ -40,6 +44,7 @@ from cutadapt_tpu_torch.batch_pipeline import (
 )
 from cutadapt_tpu_torch.io.chunks import parse_fastq_chunk
 from cutadapt_tpu_torch.io.records import SequenceRecord
+from cutadapt_tpu_torch.ops.align_cuda import kernel_layout
 from cutadapt_tpu_torch.ops.align_batch import (
     AlignerSpec,
     effective_length,
@@ -187,37 +192,107 @@ def parity_specs() -> List[AlignerSpec]:
     ])
 
 
+def _with_adapter_tail(rng: np.random.RandomState, m: int) -> str:
+    """A reference of length m: random bases, then the TruSeq adapter."""
+    return "".join(rng.choice(list("ACGT"), m - len(ADAPTER))) + ADAPTER
+
+
+def block_edge_specs() -> List[AlignerSpec]:
+    """Adapters of lanes * rows - 1, lanes * rows and lanes * rows + 1 DP
+    rows for the flagship adapter's kernel layout: the last lane's block
+    one row short, full, and one row over (the next layout). Each as a
+    3' adapter, a prefix and a suffix (the suffix starts its reads'
+    columns at min_n > 0)."""
+    lay = kernel_layout(len(ADAPTER))
+    rng = np.random.RandomState(40)
+    cases = []
+    for rows in (lay.lanes * lay.rows + d for d in (-1, 0, 1)):
+        ref = _with_adapter_tail(rng, rows - 1)
+        cases += [(ref, False, where, 0.1, 1, 3)
+                  for where in (Where.BACK, Where.PREFIX, Where.SUFFIX)]
+    return _specs(cases)
+
+
+def variant_specs() -> List[AlignerSpec]:
+    """One adapter per register variant of the kernel (lanes, rows):
+    lanes * rows DP rows, every lane's block full. A 3' adapter, and in
+    turn a prefix, a suffix or an anywhere adapter, so that each variant
+    also resolves a band of another kind. An error rate of 0.15 allows an
+    error from 7 bp on."""
+    rng = np.random.RandomState(41)
+    kinds = (Where.PREFIX, Where.SUFFIX, Where.ANYWHERE)
+    variants = sorted({(lay.lanes, lay.rows) for lay in map(
+        kernel_layout, range(1, 256)) if lay.mode == "registers"})
+    cases = []
+    for v, (lanes, rows) in enumerate(variants):
+        m = lanes * rows - 1
+        ref = ADAPTER[-m:] if m <= len(ADAPTER) else _with_adapter_tail(rng, m)
+        cases += [(ref, False, where, 0.15, 1, 3)
+                  for where in (Where.BACK, kinds[v % 3])]
+    return _specs(cases)
+
+
+def placement(spec: AlignerSpec) -> dict:
+    """Where random_batch puts the adapter copies so that ``spec`` can
+    find them: at the read's start where the query start is fixed, at its
+    end where the query stop is."""
+    return dict(at_start=not spec.start_in_query,
+                at_end=spec.start_in_query and not spec.stop_in_query)
+
+
+def variant_read_length(spec: AlignerSpec) -> int:
+    """Reads for a variant adapter: at least twice its length, so that
+    every row runs full columns and suffix reads start at min_n > 0."""
+    return max(128, -(-2 * (len(spec.reference) + 1) // 4) * 4)
+
+
 def long_specs() -> List[AlignerSpec]:
-    """200 bp adapters: their DP column does not fit the kernel's shared
-    memory, so it lives in the wrapper's device scratch buffer."""
+    """200 bp adapters (32 lanes of 7 rows, the widest register variant)
+    and a 300 bp one (301 DP rows: each lane's rows in shared memory)."""
     rng = np.random.RandomState(200)
-    ref = "".join(rng.choice(list("ACGT"), 200 - len(ADAPTER))) + ADAPTER
+    ref = _with_adapter_tail(rng, 200)
     wild = ref[:60] + "NN" + ref[62:]
     return _specs([
         (ref, False, Where.BACK, 0.1, 1, 3),
         (ref, False, Where.ANYWHERE, 0.1, 1, 3),
         (wild, True, Where.BACK, 0.1, 1, 3),
+        (_with_adapter_tail(rng, 300), False, Where.BACK, 0.1, 1, 3),
     ])
 
 
+def very_long_spec() -> AlignerSpec:
+    """A 4,000 bp adapter: a block of lanes' rows does not fit in shared
+    memory, so they live in the wrapper's device scratch buffer."""
+    return _specs([(_with_adapter_tail(np.random.RandomState(4000), 4000),
+                    False, Where.BACK, 0.1, 1, 3)])[0]
+
+
 def random_batch(spec: AlignerSpec, rng: np.random.RandomState, B: int,
-                 L: int, pack2: bool):
+                 L: int, pack2: bool, at_start: bool = False,
+                 at_end: bool = False):
     """(raw bytes (B, L), packed class ids (B, L/4 or L/2), lengths (B,)).
 
     Reads draw from ``ACGTNacgt``; a third of them carry a spliced
-    adapter copy with one substitution. For the 2-bit lane every byte
-    whose class id does not fit in 2 bits becomes 'A', so the batch is
-    what the engine's clean-window split would send there."""
+    adapter copy with one substitution, at the read's start if
+    ``at_start`` (as a prefix adapter needs it), at its end, the read
+    L bp long, if ``at_end`` (as a suffix adapter needs it). For the 2-bit
+    lane every byte whose class id does not fit in 2 bits becomes 'A', so
+    the batch is what the engine's clean-window split would send there."""
     cls_lut, _ = query_class_info(spec)
     raw = rng.choice(np.frombuffer(b"ACGTNacgt", np.uint8), size=(B, L))
     ad = np.frombuffer(spec.reference.encode(), np.uint8)
     for i in range(0, B, 3):
-        pos = rng.randint(0, L - 4)
+        if at_end:
+            pos = max(0, L - len(ad))
+        else:
+            pos = 0 if at_start else rng.randint(0, L - 4)
         take = min(len(ad), L - pos)
         raw[i, pos : pos + take] = ad[:take]
         if spec.max_error_rate > 0 and take > 4:
             raw[i, pos + rng.randint(take)] = ord("T")
     lens = rng.randint(0, L + 1, B).astype(np.int32)
+    if at_end:
+        lens[::3] = L
     if pack2:
         raw[cls_lut[raw] > 3] = ord("A")
     raw[np.arange(L)[None, :] >= lens[:, None]] = 0
