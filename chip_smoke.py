@@ -26,13 +26,28 @@ Phases, each of which must pass:
    median of 3 passes after one warm pass;
 4. dirty lane: 262,144 reads of which 5% carry N bases, so that the
    kernel's 4-bit lane and the host scalar tail run; output
-   byte-identical to the per-read host path.
+   byte-identical to the per-read host path;
+5. cli: phase 3's reads written to a FASTQ file and trimmed by
+   ``cutadapt_tpu_torch.cli.main`` in-process on the card, under
+   CUTADAPT_TPU_TORCH_BATCH=require: the output file equals phase 3's
+   engine output byte for byte and the report's reads-with-adapters
+   count equals the host path's, at -j 1 and -j 3; the CLI's wall time
+   and reads/s (median of 3 runs after the first) and the first run's
+   start-up time (call to first chunk submitted, kernel library already
+   built); one counted run of the flagship file and one of phase 4's
+   dirty file through main, each lane's launches there (the engine's
+   warm-up apart) with its time, bound and parity against the plain
+   version at every shape the CLI launched; then every golden case the
+   engine accepts (tests/torch_fixtures.py) through main on the card,
+   byte-identical to tests/cut/.
 
-Launch counters are set to 0 just before the main path's warm pass (and
-before the dirty phase) and read just after; each kernel must have been
+Launch counters are set to 0 just before each counted window (the main
+path's warm pass, the dirty lane, each counted CLI run, the golden
+cases) and read just after; each lane the window carries must have been
 launched there. Prints the card's name and power limit, one JSON line
-with every kernel's numbers (time, bound and time / bound at every shape
-the path launched), and as the last line {"ok": true, "device": {...}}.
+with every kernel's numbers (time, bound, time / bound and error at
+every shape the path launched, and the same for the CLI's shapes under
+"cli"), and as the last line {"ok": true, "device": {...}}.
 
 The workload and the parity matrix come from tests/torch_fixtures.py.
 Run from the repository root: python3 chip_smoke.py
@@ -150,14 +165,24 @@ def host_us(fn, reps: int) -> float:
 
 class Recorder:
     """Wraps the engine's kernel entry: notes the shape of every launch
-    and keeps a copy of the first inputs of each shape."""
+    and keeps a copy of the first inputs of each shape. Launches made
+    while warming() is true (the engine's warm-up on zeros) are only
+    counted, per lane, in warmup."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, warming=lambda: False):
         self.fn = fn
+        self.warming = warming
         self.calls = []  # (pack2, B, Wp)
         self.inputs = {}  # (pack2, B, Wp) -> (enc, lengths, tables)
+        self.warmup = {"pack2": 0, "pack4": 0}
+
+    def launches(self, pack2: bool) -> int:
+        return sum(1 for k in self.calls if k[0] == pack2)
 
     def __call__(self, enc, lengths, tables, pack2):
+        if self.warming():
+            self.warmup["pack2" if pack2 else "pack4"] += 1
+            return self.fn(enc, lengths, tables, pack2)
         key = (bool(pack2), enc.shape[0], enc.shape[1])
         self.calls.append(key)
         if key not in self.inputs:
@@ -339,7 +364,133 @@ def drive(engine, data, chunk_records, label):
         f"candidates/read {xfer['candidates'] / n}, DP rows/read "
         f"{xfer['dp_rows'] / n}, H2D B/read {xfer['h2d_bytes'] / n}, "
         f"D2H B/read {xfer['d2h_bytes'] / n}")
-    return chunks, rec, launches
+    return chunks, rec, launches, host, host_matched
+
+
+def cli_phase(files, engine_rps: float) -> dict:
+    """Phase 5: the flagship file through cli.main on the card (a first
+    run, timed runs, -j 3), one counted run of the flagship file and one
+    of the dirty file, then the accepted golden cases. files maps "clean"
+    and "dirty" to (FASTQ bytes, the per-read host path's output, its
+    reads with adapters). Returns each counted window's recorder and
+    launches."""
+    import logging
+    import tempfile
+
+    import torch
+    import cutadapt_tpu_torch.batch_pipeline as bp
+    import torch_fixtures as fx
+    from cutadapt_tpu_torch import accel, cli
+    from cutadapt_tpu_torch.ops import align_cuda
+
+    # the CLI's report lines go nowhere; its errors reach stderr
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    os.environ["CUTADAPT_TPU_TORCH_BATCH"] = "require"
+    for name in ("CUTADAPT_TPU_TORCH_DEVICE", "CUTADAPT_TPU_TORCH_CHUNK_BYTES"):
+        os.environ.pop(name, None)
+    fallbacks = accel.FALLBACK_COUNT
+    windows = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        paths = {}
+        for which, (data, _, _) in files.items():
+            paths[which] = os.path.join(tmp, f"{which}.fastq")
+            with open(paths[which], "wb") as f:
+                f.write(data)
+            log(f"cli: {which} file written, {len(data)} bytes")
+
+        def run(tag, which="clean", extra=()):
+            _, want, want_matched = files[which]
+            out = os.path.join(tmp, f"{tag}.fastq")
+            rep = os.path.join(tmp, f"{tag}.json")
+            t0 = time.perf_counter()
+            cli.main(["-a", fx.ADAPTER, "-e", "0.1", "-O", "3", *extra,
+                      "-o", out, "--json", rep, paths[which]])
+            dt = time.perf_counter() - t0
+            with open(out, "rb") as f:
+                got = f.read()
+            with open(rep) as f:
+                matched = json.load(f)["read_counts"]["read1_with_adapter"]
+            if got != want:
+                fail(f"cli {tag}: output differs from the per-read host "
+                     f"path ({len(got)} vs {len(want)} bytes)")
+            if matched != want_matched:
+                fail(f"cli {tag}: report counts {matched} reads with "
+                     f"adapters, the host path {want_matched}")
+            os.unlink(out)
+            return t0, dt
+
+        t_call, dt = run("first")
+        times = accel.RUN_TIMES
+        startup = times["first_submit"] - t_call
+        log(f"cli: first main call {dt:.3f} s, {N_READS / dt:.1f} reads/s; "
+            f"start-up (call to first chunk submitted, library built) "
+            f"{startup * 1e3:.1f} ms, of which device setup and warm-up "
+            f"{(times['device_ready'] - times['start']) * 1e3:.1f} ms")
+        walls = []
+        for i in range(TIMED_PASSES):
+            accel.reset_flight_metrics()
+            walls.append(run(f"timed{i}")[1])
+            log(f"cli run: {walls[-1]:.3f} s, {N_READS / walls[-1]:.1f} "
+                f"reads/s, at most {accel.flight_metrics()['max']} chunks "
+                f"in flight")
+        walls.sort()
+        wall = walls[len(walls) // 2]
+        _, dt_j3 = run("j3", extra=("-j", "3"))
+        log(f"cli: -j 3 (the same pipelined drive): output identical, "
+            f"{dt_j3:.3f} s, {N_READS / dt_j3:.1f} reads/s")
+        log(f"cli: median wall {wall:.4f} s = {N_READS / wall:.1f} reads/s "
+            f"through main (file read, parse, engine, write, report) vs "
+            f"{engine_rps:.1f} reads/s engine-only in phase 3 "
+            f"({torch.cuda.get_device_name(0)}, "
+            f"{nvidia_smi('power.limit')})")
+        log(f"cli_reads_per_sec {N_READS / wall}")
+        log(f"cli_startup_ms {startup * 1e3}")
+
+        # one counted run per file: counts set to 0 just before main,
+        # read just after; the engine's warm-up launches (before the
+        # device is ready) are told apart from the chunks' launches
+        for which in files:
+            rec = Recorder(bp.locate_packed,
+                           warming=lambda: times["device_ready"] is None)
+            bp.locate_packed = rec
+            align_cuda.reset_launch_counters()
+            try:
+                run(f"counted_{which}", which)
+            finally:
+                bp.locate_packed = rec.fn
+            launches = dict(align_cuda.LAUNCHES)
+            windows[which] = (rec, launches)
+            log(f"cli: one {which} file run through main: launches "
+                f"{launches}, of which warm-up {rec.warmup}; chunk "
+                f"launches per shape "
+                f"{ {k: rec.calls.count(k) for k in sorted(rec.inputs)} }")
+        if windows["clean"][0].launches(True) <= 0:
+            fail("cli: the flagship file launched no 2-bit chunk batch")
+        if windows["dirty"][0].launches(False) <= 0:
+            fail("cli: the dirty file launched no 4-bit chunk batch")
+
+        align_cuda.reset_launch_counters()
+        ran = 0
+        for case_id, params, expected, inpath in fx.golden_cases():
+            if case_id in fx.ENGINE_NOT_YET:
+                continue
+            out = os.path.join(tmp, "golden_" + expected)
+            cli.main(fx.golden_args(params, out, inpath))
+            with open(out, "rb") as f, open(fx.golden_path(expected), "rb") as g:
+                if f.read() != g.read():
+                    fail(f"cli golden case {case_id}: output differs from "
+                         f"tests/cut/{expected}")
+            ran += 1
+        golden = dict(align_cuda.LAUNCHES)
+        if min(golden.values()) <= 0:
+            fail(f"cli golden cases: a kernel lane was never launched: "
+                 f"{golden}")
+        log(f"cli: {ran} accepted golden cases byte-identical on the card; "
+            f"their launches (warm-ups included) {golden}")
+    if accel.FALLBACK_COUNT != fallbacks:
+        fail(f"cli: {accel.FALLBACK_COUNT - fallbacks} fallbacks "
+             f"({accel.LAST_FALLBACK})")
+    return dict(windows=windows, golden=golden)
 
 
 def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2: bool):
@@ -385,9 +536,10 @@ def bound_of(enc, lens, tables, pack2, clock_hz, sms):
 
 
 def kernel_numbers(rec, pack2, clock_hz, sms):
-    """Kernel time, bound and time / bound at every dispatch shape of a
-    lane the path launched; the plain version's time and the error at the
-    largest; the device time of all the run's launches."""
+    """Kernel time, bound, time / bound and the error against the plain
+    version at every dispatch shape of a lane the path launched; the
+    plain version's time at the largest; the device time of all the
+    run's launches."""
     import torch_fixtures as fx
     from cutadapt_tpu_torch.ops import align_cuda
 
@@ -402,12 +554,20 @@ def kernel_numbers(rec, pack2, clock_hz, sms):
         def call():
             return align_cuda.locate_packed(enc, lens, tables, pack2)
 
+        g = align_cuda.unpack_result(call().cpu().numpy())
+        p = align_cuda.unpack_result(
+            align_cuda.locate_reference(enc, lens, tables, pack2).cpu().numpy()
+        )
+        diff = fx.first_difference(g, p)
+        if diff is not None:
+            fail(f"kernel vs plain at the path's shape {key}: {diff}")
         ms = cuda_ms(call, 20, graph=True)
         bound_ms, bound_by, work = bound_of(enc, lens, tables, pack2,
                                             clock_hz, sms)
         per_shape.append(dict(
             shape=[key[1], key[2]], launches=rec.calls.count(key), ms=ms,
             bound_ms=bound_ms, bound_by=bound_by, x_bound=ms / bound_ms,
+            max_abs_err=max_abs_err(g, p),
             stream_ms=cuda_ms(call, 20), host_us_per_call=host_us(call, 20),
             dp_cells=work[1], dp_columns=work[0],
             match_share=work[2] / max(work[1], 1),
@@ -415,13 +575,6 @@ def kernel_numbers(rec, pack2, clock_hz, sms):
         ))
     top = per_shape[0]
     enc, lens, tables = rec.inputs[shapes[0]]
-    got = align_cuda.locate_packed(enc, lens, tables, pack2)
-    plain = align_cuda.locate_reference(enc, lens, tables, pack2)
-    g = align_cuda.unpack_result(got.cpu().numpy())
-    p = align_cuda.unpack_result(plain.cpu().numpy())
-    diff = fx.first_difference(g, p)
-    if diff is not None:
-        fail(f"kernel vs plain at the path's shape {shapes[0]}: {diff}")
     plain_ms = cuda_ms(
         lambda: align_cuda.locate_reference(enc, lens, tables, pack2), 2
     )
@@ -429,10 +582,15 @@ def kernel_numbers(rec, pack2, clock_hz, sms):
     return dict(
         shape=top["shape"], ms=top["ms"], plain_ms=plain_ms,
         bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-        max_abs_err=max_abs_err(g, p), per_shape=per_shape,
+        max_abs_err=max(d["max_abs_err"] for d in per_shape),
+        per_shape=per_shape,
         run_kernel_ms=sum(d["ms"] * d["launches"] for d in per_shape),
         lanes=lay.lanes, rows=lay.rows, mode=lay.mode,
     )
+
+
+PER_SHAPE_KEYS = ("shape", "launches", "ms", "bound_ms", "bound_by",
+                  "x_bound", "max_abs_err")
 
 
 def shape_line(nums) -> str:
@@ -504,7 +662,7 @@ def main() -> int:
     data = fx.make_dataset(N_READS)
     log(f"main path: {N_READS} reads, {len(data) / 1e6:.1f} MB of FASTQ "
         f"({time.perf_counter() - t0:.1f} s to generate)")
-    chunks, rec_main, launches_main = drive(
+    chunks, rec_main, launches_main, main_out, main_matched = drive(
         engine, data, fx.CHUNK_RECORDS, "main path"
     )
     if launches_main["pack2"] <= 0:
@@ -535,7 +693,7 @@ def main() -> int:
 
     # 4. dirty lane
     dirty = fx.add_ns(fx.make_dataset(N_DIRTY_READS, seed=777), 0.05)
-    _, rec_dirty, launches_dirty = drive(
+    _, rec_dirty, launches_dirty, dirty_host, dirty_matched = drive(
         engine, dirty, fx.CHUNK_RECORDS, "dirty lane"
     )
     if launches_dirty["pack4"] <= 0:
@@ -543,6 +701,29 @@ def main() -> int:
     k4 = kernel_numbers(rec_dirty, False, clock_mhz * 1e6, sms)
     log(f"dirty lane: 4-bit kernel {shape_line(k4)}; plain "
         f"{k4['plain_ms']:.3f} ms")
+
+    # 5. cli
+    cli_runs = cli_phase({
+        "clean": (data, main_out, main_matched),
+        "dirty": (dirty, dirty_host, dirty_matched),
+    }, rps)
+    # each lane at the shapes of the CLI run that carries it: the 2-bit
+    # lane on the flagship file, the 4-bit lane on the dirty file
+    cli_nums = {}
+    for pack2, which in ((True, "clean"), (False, "dirty")):
+        rec, launches = cli_runs["windows"][which]
+        nums = kernel_numbers(rec, pack2, clock_mhz * 1e6, sms)
+        lane = "pack2" if pack2 else "pack4"
+        cli_nums[pack2] = dict(
+            file=which, launches=launches[lane],
+            warmup_launches=rec.warmup[lane],
+            golden_launches=cli_runs["golden"][lane],
+            max_abs_err=nums["max_abs_err"], plain_ms=nums["plain_ms"],
+            per_shape=[{key: d[key] for key in PER_SHAPE_KEYS}
+                       for d in nums["per_shape"]],
+        )
+        log(f"cli, {which} file: {'2-bit' if pack2 else '4-bit'} kernel "
+            f"{shape_line(nums)}; plain {nums['plain_ms']:.3f} ms")
 
     src = "cutadapt_tpu_torch/csrc/align_locate.cu"
     kernels = []
@@ -553,17 +734,22 @@ def main() -> int:
         kernels.append(dict(
             name=name, lane=lane, route="cuda", source=src,
             replaces="cutadapt_tpu/ops/align_pallas.py:73",
-            launches=launches, parity="ok",
-            max_abs_err=max(worst[pack2], nums["max_abs_err"]),
+            launches=launches,
+            cli_launches=cli_nums[pack2]["launches"],
+            parity="ok",
+            max_abs_err=max(worst[pack2], nums["max_abs_err"],
+                            cli_nums[pack2]["max_abs_err"]),
             ms=nums["ms"], plain_ms=nums["plain_ms"],
             bound_ms=nums["bound_ms"], bound_by=nums["bound_by"],
             library_ms=None, shape=nums["shape"], lanes=nums["lanes"],
             rows=nums["rows"], per_shape=[
-                {key: d[key] for key in ("shape", "launches", "ms",
-                                         "bound_ms", "bound_by", "x_bound")}
+                {key: d[key] for key in PER_SHAPE_KEYS}
                 for d in nums["per_shape"]],
+            cli=cli_nums[pack2],
         ))
     log(f"reads_per_sec {rps}")
+    # the card again, near the end of the output
+    log(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

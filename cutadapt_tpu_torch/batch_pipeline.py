@@ -94,8 +94,8 @@ def _wire_lengths(vals: np.ndarray, size: int,
 
 def _pack2_on() -> bool:
     """2-bit candidate packing (reads with N/IUPAC bytes split off to
-    the 4-bit or host-scalar lane). CUTADAPT_TPU_PACK2=0 disables."""
-    return os.environ.get("CUTADAPT_TPU_PACK2", "1") != "0"
+    the 4-bit or host-scalar lane). CUTADAPT_TPU_TORCH_PACK2=0 disables."""
+    return os.environ.get("CUTADAPT_TPU_TORCH_PACK2", "1") != "0"
 
 
 def _exact_wire_on(device: torch.device) -> bool:
@@ -104,8 +104,8 @@ def _exact_wire_on(device: torch.device) -> bool:
     64-bucket width, with candidates length-sorted so the later batches
     get narrower. Semantically invisible: columns beyond each row's
     length are zero and masked by the length. On for CUDA, off on the
-    CPU; CUTADAPT_TPU_EXACT_WIRE=1/0 overrides."""
-    env = os.environ.get("CUTADAPT_TPU_EXACT_WIRE")
+    CPU; CUTADAPT_TPU_TORCH_EXACT_WIRE=1/0 overrides."""
+    env = os.environ.get("CUTADAPT_TPU_TORCH_EXACT_WIRE")
     if env is not None:
         return env != "0"
     return device.type == "cuda"
@@ -116,7 +116,7 @@ def _scalar_tail_max() -> int:
     many rows after the full device batches goes to the C++ scalar
     aligner instead of a padded min_dp_batch dispatch. 0 disables;
     applies only after at least one full device batch."""
-    return int(os.environ.get("CUTADAPT_TPU_SCALAR_TAIL", 512))
+    return int(os.environ.get("CUTADAPT_TPU_TORCH_SCALAR_TAIL", 512))
 
 
 def _eff_width(bmax: int, width: int, pack2: bool) -> int:

@@ -93,6 +93,10 @@ MODES = ("registers", "shared", "scratch")
 LAUNCHES = {"pack2": 0, "pack4": 0}
 # the same launches by instantiation (template_args), beside LAUNCHES
 VARIANT_LAUNCHES = {}
+# calls of the wrapper that ran the plain version (CPU tensors), per lane
+PLAIN_RUNS = {"pack2": 0, "pack4": 0}
+# the counters are bumped from whichever thread launches
+_COUNT_LOCK = threading.Lock()
 # how the kernel library was obtained: path, build seconds, nvcc log
 BUILD_INFO = {}
 
@@ -115,9 +119,11 @@ def unpack_result(arr: np.ndarray):
 
 
 def reset_launch_counters() -> None:
-    for lane in LAUNCHES:
-        LAUNCHES[lane] = 0
-    VARIANT_LAUNCHES.clear()
+    with _COUNT_LOCK:
+        for lane in LAUNCHES:
+            LAUNCHES[lane] = 0
+            PLAIN_RUNS[lane] = 0
+        VARIANT_LAUNCHES.clear()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -128,9 +134,9 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"device {str(dev)!r} was requested but "
-                "torch.cuda.is_available() is False; pass device='cpu' "
-                "to run the plain PyTorch versions"
+                f"device {str(dev)!r} was requested but there is no CUDA "
+                "device (torch.cuda.is_available() is False); pass "
+                "device='cpu' to run the plain PyTorch versions"
             )
         return dev
     if dev.type == "cpu":
@@ -212,6 +218,8 @@ def locate_packed(enc: torch.Tensor, lengths: torch.Tensor,
             f"enc on {enc.device} but lengths on {lengths.device}"
         )
     if enc.device.type == "cpu":
+        with _COUNT_LOCK:
+            PLAIN_RUNS["pack2" if pack2 else "pack4"] += 1
         return locate_reference(enc, lengths, tables, pack2)
     if enc.device.type != "cuda":
         raise ValueError(f"unsupported device {enc.device}")
@@ -377,9 +385,10 @@ def _launch(enc, lengths, tables: LocateTables, pack2: bool):
         )
     if err != 0:
         raise RuntimeError(f"align_locate kernel launch failed: CUDA error {err}")
-    LAUNCHES["pack2" if pack2 else "pack4"] += 1
     key = template_args(2 if pack2 else 4, lay)
-    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
+    with _COUNT_LOCK:
+        LAUNCHES["pack2" if pack2 else "pack4"] += 1
+        VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
     return out
 
 

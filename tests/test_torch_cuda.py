@@ -164,3 +164,39 @@ def test_engine_on_card_matches_cpu(card):
     for (out, stats), (wout, wstats) in zip(got, want):
         assert out == wout
         assert stats["with_adapters"] == wstats["with_adapters"]
+
+
+GOLDEN = fx.golden_cases()
+ADAPTER_OPTIONS = ("-a", "-g", "-b", "--adapter", "--front", "--anywhere")
+ENGINE_GOLDEN = [c for c in GOLDEN if c[0] not in fx.ENGINE_NOT_YET]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", ENGINE_GOLDEN, ids=[c[0] for c in ENGINE_GOLDEN],
+)
+def test_cli_golden_on_card(card, monkeypatch, tmp_path, case):
+    """Each golden case the engine accepts, through the port's main on
+    the card in require mode: byte-identical to tests/cut/."""
+    from cutadapt_tpu_torch import accel, cli
+
+    case_id, params, expected, inpath = case
+    for name in ("CUTADAPT_TPU_TORCH_DEVICE", "CUTADAPT_TPU_TORCH_CHUNK_BYTES"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
+    out = tmp_path / expected
+    fallbacks = accel.FALLBACK_COUNT
+    align_cuda.reset_launch_counters()
+    cli.main(fx.golden_args(params, str(out), inpath))
+    with open(out, "rb") as got, open(fx.golden_path(expected), "rb") as want:
+        assert got.read() == want.read()
+    assert accel.FALLBACK_COUNT == fallbacks
+    assert align_cuda.PLAIN_RUNS == {"pack2": 0, "pack4": 0}
+    # the warm-up launches both lanes once per adapter; the reads add more
+    words = params.split() if isinstance(params, str) else params
+    warm = 2 * sum(w in ADAPTER_OPTIONS for w in words)
+    data_launches = sum(align_cuda.LAUNCHES.values()) - warm
+    if case_id in fx.NO_ALIGNER_RUN:
+        assert data_launches == 0
+    else:
+        assert data_launches > 0

@@ -40,23 +40,48 @@ SPECS = parity_specs() + CASES + [
 
 PORT_MODULES = [
     "cutadapt_tpu_torch",
+    "cutadapt_tpu_torch.accel",
     "cutadapt_tpu_torch.adapters",
     "cutadapt_tpu_torch.align",
     "cutadapt_tpu_torch.batch_pipeline",
+    "cutadapt_tpu_torch.cli",
+    "cutadapt_tpu_torch.info",
     "cutadapt_tpu_torch.io",
     "cutadapt_tpu_torch.io.chunks",
+    "cutadapt_tpu_torch.io.compressed",
+    "cutadapt_tpu_torch.io.fastq",
+    "cutadapt_tpu_torch.io.files",
     "cutadapt_tpu_torch.io.records",
+    "cutadapt_tpu_torch.json_utils",
     "cutadapt_tpu_torch.kmer_finder",
     "cutadapt_tpu_torch.kmer_heuristic",
+    "cutadapt_tpu_torch.log",
+    "cutadapt_tpu_torch.modifiers",
     "cutadapt_tpu_torch.native",
     "cutadapt_tpu_torch.ops",
     "cutadapt_tpu_torch.ops.align_batch",
     "cutadapt_tpu_torch.ops.align_cuda",
     "cutadapt_tpu_torch.ops.tables",
+    "cutadapt_tpu_torch.parser",
+    "cutadapt_tpu_torch.pipeline",
+    "cutadapt_tpu_torch.predicates",
     "cutadapt_tpu_torch.qualtrim",
+    "cutadapt_tpu_torch.report",
+    "cutadapt_tpu_torch.runners",
+    "cutadapt_tpu_torch.statistics",
+    "cutadapt_tpu_torch.steps",
+    "cutadapt_tpu_torch.tokenizer",
+    "cutadapt_tpu_torch.utils",
     "chip_smoke",
     "torch_fixtures",
 ]
+LEAK_CHECK = (
+    "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+    "             or m.startswith('jax.') or m == 'cutadapt_tpu'\n"
+    "             or m.startswith('cutadapt_tpu.'))\n"
+    "print('LEAKED', bad)\n"
+    "sys.exit(1 if bad else 0)\n"
+)
 
 
 def test_constants_match():
@@ -116,16 +141,34 @@ def test_port_imports_nothing_of_jax():
         "import importlib, sys\n"
         f"for name in {PORT_MODULES!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith('jax.') or m == 'cutadapt_tpu'\n"
-        "             or m.startswith('cutadapt_tpu.'))\n"
-        "print('LEAKED', bad)\n"
-        "sys.exit(1 if bad else 0)\n"
-    )
+    ) + LEAK_CHECK
+    r = _fresh_python("-c", code)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _fresh_python(*args):
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
-    r = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env,
+    return subprocess.run(
+        [sys.executable, *args], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
+
+
+def test_port_cli_help_imports_nothing_of_jax():
+    """``python -m cutadapt_tpu_torch --help`` runs, and a fresh
+    interpreter that runs the same module as __main__ has neither jax
+    nor any cutadapt_tpu module loaded."""
+    r = _fresh_python("-m", "cutadapt_tpu_torch", "--help")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "cutadapt-tpu-torch" in r.stdout
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['cutadapt-tpu-torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('cutadapt_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+    ) + LEAK_CHECK
+    r = _fresh_python("-c", code)
     assert r.returncode == 0, r.stdout + r.stderr

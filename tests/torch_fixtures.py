@@ -1,6 +1,6 @@
 """
 Fixtures of the PyTorch port's tests and of chip_smoke.py: the flagship
-workload and the aligner's parity matrix. Nothing here is part of the
+workload, the CLI's golden cases and the aligner's parity matrix. Nothing here is part of the
 port's package; it imports the port and numpy only, so chip_smoke.py can
 load it on a machine without JAX (``sys.path`` gets this directory).
 
@@ -17,6 +17,10 @@ The flagship workload is single-end 3' trimming of the TruSeq adapter
 - :func:`host_trim`: the per-read host path (``BackAdapter.match_to`` +
   ``Match.trimmed``), the oracle the engine's output is held to.
 
+The golden cases of the CLI: :func:`golden_cases` reads the JAX package's
+list of single-end golden cases without importing its test module, and
+:data:`ENGINE_NOT_YET` names the cases the port's engine refuses yet.
+
 The parity matrix holds the batched aligner to other forms of the same
 contract: 13 adapter specs spanning the adapter kinds and flag sets, and
 a generator of random read batches with spliced, mutated adapter copies,
@@ -31,6 +35,9 @@ everywhere and query start/stop, errors and score where found: the other
 fields are undefined where nothing was found.
 """
 
+import ast
+import contextlib
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -160,6 +167,93 @@ def host_trim(data: bytes, n_records: int):
             rec = match.trimmed(rec)
         out.append(rec.fastq_bytes())
     return b"".join(out), matched
+
+
+# --- the golden cases of the CLI ---------------------------------------------
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+
+# Golden cases whose pipeline the port's engine does not express yet, each
+# with the reason its translation gives (a substring of the require-mode
+# error). A case leaves this dict when a later slice ports what it names.
+ENGINE_NOT_YET = {
+    "length_tag": "modifier LengthTagModifier",
+    "trim_n": "modifier NEndTrimmer",
+    "qualtrim": "modifier QualityTrimmer",
+    "qualbase": "modifier QualityTrimmer",
+    "quality_trim_only": "modifier QualityTrimmer",
+    "polya": "modifier PolyATrimmer",
+    "anchored_back_no_indels": "anchored suffix adapters without indels",
+    "strip_suffix": "modifier SuffixRemover",
+    "anchored_no_indels": "anchored prefix adapters without indels",
+    "anchored_no_indels_wildcard_read":
+        "anchored prefix adapters without indels",
+    "anchored_no_indels_wildcard_adapt":
+        "anchored prefix adapters without indels",
+    "cut_front": "modifier UnconditionalCutter",
+    "cut_back": "modifier UnconditionalCutter",
+    "cut_both": "modifier UnconditionalCutter",
+    "multiple_fake_anchored": "indexed_prefix adapters",
+    "multiple_prefix": "indexed_prefix adapters",
+    "multiple_prefix_noindels": "indexed_prefix adapters",
+    "multiple_suffix_noindels": "indexed_suffix adapters",
+    "nextseq": "modifier NextseqQualityTrimmer",
+    "linked_anchored": "linked adapters",
+    "linked_multiple": "linked adapters",
+    "linked_both_anchored": "linked adapters",
+    "linked_5p_not_anchored": "linked adapters",
+    "linked_discard_untrimmed": "linked adapters",
+    "linked_discard_untrimmed_g": "linked adapters",
+    "linked_lowercase": "linked adapters",
+    "length": "modifier Shortener",
+    "negative_length": "modifier Shortener",
+}
+# Accepted cases in which the aligner has nothing to do
+NO_ALIGNER_RUN = {"fasta_no_trim": "no adapter", "empty_wildcard": "no reads"}
+
+
+def golden_cases():
+    """The (id, params, expected, input) tuples of
+    ``tests/test_commandline.py:GOLDEN_CASES``, read with
+    ``ast.literal_eval`` on that one assignment, without importing the
+    module (which imports the JAX package)."""
+    path = os.path.join(TESTS, "test_commandline.py")
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+            isinstance(t, ast.Name) and t.id == "GOLDEN_CASES"
+            for t in node.targets
+        ):
+            return ast.literal_eval(node.value)
+    raise LookupError(f"no GOLDEN_CASES assignment in {path}")
+
+
+def golden_args(params, out: str, inpath: str) -> List[str]:
+    """The command line of one golden case writing to ``out``."""
+    params = params.split() if isinstance(params, str) else list(params)
+    return params + ["-o", out, os.path.join(TESTS, "data", inpath)]
+
+
+def golden_path(expected: str) -> str:
+    return os.path.join(TESTS, "cut", expected)
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run PyTorch's CPU ops on one thread. The plain aligner issues many
+    small tensor ops per DP column; where several test processes share the
+    host's cores, a pool of threads per op spends far longer waiting at
+    its barriers than computing (the CLI tests ran hundreds of times
+    slower that way)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 # --- the aligner's parity matrix ---------------------------------------------
