@@ -39,15 +39,32 @@ Phases, each of which must pass:
    warm-up apart) with its time, bound and parity against the plain
    version at every shape the CLI launched; then every golden case the
    engine accepts (tests/torch_fixtures.py) through main on the card,
-   byte-identical to tests/cut/.
+   byte-identical to tests/cut/;
+6. host stages: the repo's configuration -q 20 -a ADAPTER --poly-a -m 10
+   (bench_configs.py:132-135) on 524,288 reads of 40-100 bp (30% with
+   the adapter, 30% with an A tail, phred 2-40) through main under
+   require, held to the port's per-read host path
+   (CUTADAPT_TPU_TORCH_BATCH=0): the output file byte for byte, and the
+   --json report's read counts, base-pair counts (quality-trimmed and
+   poly-A bases) and adapter statistics; reads/s through main (median
+   of 3 runs after the first); one counted run, each kernel shape there
+   timed, bounded and held to the plain version;
+7. linked primers: the amplicon trimming of cutadapt's user guide,
+   -a ^GTGYCAGCMGCCGCGGTAA...ATTAGAWACCCBNGTAGTCC --discard-untrimmed
+   (the 16S V4 primers 515F and 806R), on 262,144 synthetic amplicon
+   reads of 260-299 bp, held and measured as phase 6; the 5' phase
+   launches the kernel from submit, the 3' phase from collect, and each
+   must launch the 2-bit lane.
 
 Launch counters are set to 0 just before each counted window (the main
 path's warm pass, the dirty lane, each counted CLI run, the golden
-cases) and read just after; each lane the window carries must have been
-launched there. Prints the card's name and power limit, one JSON line
-with every kernel's numbers (time, bound, time / bound and error at
-every shape the path launched, and the same for the CLI's shapes under
-"cli"), and as the last line {"ok": true, "device": {...}}.
+cases, the counted runs of phases 6 and 7) and read just after; each
+lane the window carries must have been launched there. Prints the
+card's name and power limit, one JSON line with every kernel's numbers
+(time, bound, time / bound and error at every shape the path launched,
+and the same for the CLI's shapes under "cli" and for phases 6 and 7
+under "host_stages" and "linked", by task), and as the last line
+{"ok": true, "device": {...}}.
 
 The workload and the parity matrix come from tests/torch_fixtures.py.
 Run from the repository root: python3 chip_smoke.py
@@ -65,6 +82,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_READS = 524288
 N_DIRTY_READS = 262144
+# phase 6 (bench_configs.py:132-135) and phase 7 (linked 16S primers)
+N_POLYA_READS = 524288
+N_AMPLICON_READS = 262144
 PARITY_READS = 1024
 PARITY_LENGTHS = (128, 512)
 # reads for the adapters past the flagship's width (long_specs)
@@ -167,23 +187,26 @@ class Recorder:
     """Wraps the engine's kernel entry: notes the shape of every launch
     and keeps a copy of the first inputs of each shape. Launches made
     while warming() is true (the engine's warm-up on zeros) are only
-    counted, per lane, in warmup."""
+    counted, per lane, in warmup. task(tables) labels the task a launch
+    belongs to (the phase of a linked adapter), "" by default."""
 
-    def __init__(self, fn, warming=lambda: False):
+    def __init__(self, fn, warming=lambda: False, task=lambda tables: ""):
         self.fn = fn
         self.warming = warming
-        self.calls = []  # (pack2, B, Wp)
-        self.inputs = {}  # (pack2, B, Wp) -> (enc, lengths, tables)
+        self.task = task
+        self.calls = []  # (pack2, B, Wp, task)
+        self.inputs = {}  # (pack2, B, Wp, task) -> (enc, lengths, tables)
         self.warmup = {"pack2": 0, "pack4": 0}
 
-    def launches(self, pack2: bool) -> int:
-        return sum(1 for k in self.calls if k[0] == pack2)
+    def launches(self, pack2: bool, task=None) -> int:
+        return sum(1 for k in self.calls
+                   if k[0] == pack2 and task in (None, k[3]))
 
     def __call__(self, enc, lengths, tables, pack2):
         if self.warming():
             self.warmup["pack2" if pack2 else "pack4"] += 1
             return self.fn(enc, lengths, tables, pack2)
-        key = (bool(pack2), enc.shape[0], enc.shape[1])
+        key = (bool(pack2), enc.shape[0], enc.shape[1], self.task(tables))
         self.calls.append(key)
         if key not in self.inputs:
             self.inputs[key] = (enc.clone(), lengths.clone(), tables)
@@ -493,6 +516,127 @@ def cli_phase(files, engine_rps: float) -> dict:
     return dict(windows=windows, golden=golden)
 
 
+def report_parts(path: str) -> dict:
+    """The parts of a --json report that the engine must reproduce."""
+    with open(path) as f:
+        rep = json.load(f)
+    return {k: rep[k] for k in ("read_counts", "basepair_counts",
+                                "adapters_read1")}
+
+
+def config_phase(label, args, data, task_of, tasks):
+    """Phases 6 and 7: one configuration through cli.main on the card
+    under CUTADAPT_TPU_TORCH_BATCH=require at -j 1, held to the port's
+    per-read host path (CUTADAPT_TPU_TORCH_BATCH=0): the output file
+    byte for byte, and the report's read counts, base-pair counts and
+    adapter statistics. A first run, TIMED_PASSES timed runs (reads/s
+    through main, the median), then one counted run: launch counters at
+    0 just before it, read just after, each launch's shape recorded by
+    task (task_of(tables) in `tasks`), every task must launch the 2-bit
+    lane; the engine that run built then takes one sequential pass over
+    the same reads for the host time per stage. Returns (recorder,
+    launches, reads/s)."""
+    import tempfile
+
+    import cutadapt_tpu_torch.adapters as port_adapters
+    import cutadapt_tpu_torch.batch_pipeline as bp
+    import torch_fixtures as fx
+    from cutadapt_tpu_torch import accel, cli
+    from cutadapt_tpu_torch.ops import align_cuda
+
+    n_reads = data.count(b"\n") // 4
+    fallbacks = accel.FALLBACK_COUNT
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cfg_") as tmp:
+        inp = os.path.join(tmp, "in.fastq")
+        with open(inp, "wb") as f:
+            f.write(data)
+
+        def run(tag, mode):
+            os.environ["CUTADAPT_TPU_TORCH_BATCH"] = mode
+            # adapters without a name are numbered per process
+            port_adapters._adapter_counter = [0]
+            out = os.path.join(tmp, f"{tag}.fastq")
+            rep = os.path.join(tmp, f"{tag}.json")
+            t0 = time.perf_counter()
+            cli.main([*args, "-o", out, "--json", rep, inp])
+            dt = time.perf_counter() - t0
+            with open(out, "rb") as f:
+                got = f.read()
+            os.unlink(out)
+            return got, report_parts(rep), dt
+
+        want, want_rep, dt = run("host", "0")
+        log(f"{label}: {n_reads} reads ({len(data)} bytes) through the "
+            f"per-read host path: {dt:.1f} s, {len(want)} bytes out, "
+            f"read counts {want_rep['read_counts']}, base pairs "
+            f"{want_rep['basepair_counts']}")
+
+        def engine_run(tag):
+            got, rep, dt = run(tag, "require")
+            if got != want:
+                pos = next((i for i, (a, b) in enumerate(zip(got, want))
+                            if a != b), min(len(got), len(want)))
+                fail(f"{label} {tag}: output differs from the host path at "
+                     f"byte {pos} ({len(got)} vs {len(want)} bytes)")
+            for key in want_rep:
+                if rep[key] != want_rep[key]:
+                    fail(f"{label} {tag}: report {key} {rep[key]} differs "
+                         f"from the host path's {want_rep[key]}")
+            return dt
+
+        dt = engine_run("first")
+        log(f"{label}: first main call {dt:.3f} s, {n_reads / dt:.1f} reads/s"
+            f", output and report equal to the host path")
+        walls = []
+        for i in range(TIMED_PASSES):
+            accel.reset_flight_metrics()
+            walls.append(engine_run(f"timed{i}"))
+            log(f"{label} run: {walls[-1]:.3f} s, "
+                f"{n_reads / walls[-1]:.1f} reads/s, at most "
+                f"{accel.flight_metrics()['max']} chunks in flight")
+        walls.sort()
+        rps = n_reads / walls[len(walls) // 2]
+
+        times = accel.RUN_TIMES
+        rec = Recorder(bp.locate_packed,
+                       warming=lambda: times["device_ready"] is None,
+                       task=task_of)
+        engines = []
+        setup = accel._setup_device
+
+        def kept_setup(translated):
+            engines.append(setup(translated))
+            return engines[-1]
+
+        accel._setup_device = kept_setup
+        bp.locate_packed = rec
+        align_cuda.reset_launch_counters()
+        try:
+            engine_run("counted")
+        finally:
+            bp.locate_packed = rec.fn
+            accel._setup_device = setup
+        launches = dict(align_cuda.LAUNCHES)
+    if accel.FALLBACK_COUNT != fallbacks:
+        fail(f"{label}: {accel.FALLBACK_COUNT - fallbacks} fallbacks "
+             f"({accel.LAST_FALLBACK})")
+    per_task = {t: rec.launches(True, t) for t in tasks}
+    log(f"{label}: one run through main: launches {launches}, of which "
+        f"warm-up {rec.warmup}; 2-bit launches by task {per_task}; per "
+        f"shape { {k: rec.calls.count(k) for k in sorted(rec.inputs)} }")
+    missing = [t for t, n in per_task.items() if n <= 0]
+    if missing:
+        fail(f"{label}: the 2-bit lane was never launched for {missing}")
+    chunks, _ = fx.split_records(data, fx.CHUNK_RECORDS)
+    stages = stage_breakdown(engines[0], chunks, n_reads)
+    log(f"{label}: the run's engine, one sequential pass in chunks of "
+        f"{fx.CHUNK_RECORDS} reads, host ns/read by stage "
+        f"{ {k: round(v, 1) for k, v in stages.items()} }")
+    log(f"{label}: median {rps:.1f} reads/s through main over "
+        f"{TIMED_PASSES} runs")
+    return rec, launches, rps
+
+
 def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2: bool):
     """The DP work this batch's data needs: each read runs its active
     columns (min_n, min(max_n, width)] over rows 0..m. Returns (active
@@ -565,7 +709,8 @@ def kernel_numbers(rec, pack2, clock_hz, sms):
         bound_ms, bound_by, work = bound_of(enc, lens, tables, pack2,
                                             clock_hz, sms)
         per_shape.append(dict(
-            shape=[key[1], key[2]], launches=rec.calls.count(key), ms=ms,
+            task=key[3], shape=[key[1], key[2]],
+            launches=rec.calls.count(key), ms=ms,
             bound_ms=bound_ms, bound_by=bound_by, x_bound=ms / bound_ms,
             max_abs_err=max_abs_err(g, p),
             stream_ms=cuda_ms(call, 20), host_us_per_call=host_us(call, 20),
@@ -589,12 +734,13 @@ def kernel_numbers(rec, pack2, clock_hz, sms):
     )
 
 
-PER_SHAPE_KEYS = ("shape", "launches", "ms", "bound_ms", "bound_by",
+PER_SHAPE_KEYS = ("task", "shape", "launches", "ms", "bound_ms", "bound_by",
                   "x_bound", "max_abs_err")
 
 
 def shape_line(nums) -> str:
     return "; ".join(
+        f"{d['task'] + ' ' if d['task'] else ''}"
         f"{d['shape'][0]}x{d['shape'][1]}: {d['ms']:.4f} ms, bound "
         f"{d['bound_ms']:.5f} ms ({d['bound_by']}), {d['x_bound']:.2f}x, "
         f"{d['launches']} launches, {d['stream_ms']:.4f} ms per launch "
@@ -725,6 +871,50 @@ def main() -> int:
         log(f"cli, {which} file: {'2-bit' if pack2 else '4-bit'} kernel "
             f"{shape_line(nums)}; plain {nums['plain_ms']:.3f} ms")
 
+    # 6. host stages: the repo's -q 20 -a ADAPTER --poly-a -m 10
+    os.environ.pop("CUTADAPT_TPU_TORCH_CHUNK_BYTES", None)
+    t0 = time.perf_counter()
+    polya = fx.make_reads(N_POLYA_READS, 1, [fx.ADAPTER], polya=True)
+    log(f"host stages: {N_POLYA_READS} reads generated "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rec6, launches6, rps6 = config_phase(
+        "host stages", ["-q", "20", "-a", fx.ADAPTER, "--poly-a", "-m", "10"],
+        polya, lambda tables: "3'", ["3'"],
+    )
+    # 7. linked primers: the 5' phase (PREFIX) launches from submit, the
+    # 3' phase (BACK) from collect
+    from cutadapt_tpu_torch.adapters import Where
+
+    t0 = time.perf_counter()
+    amplicons = fx.make_amplicons(N_AMPLICON_READS)
+    log(f"linked primers: {N_AMPLICON_READS} reads generated "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rec7, launches7, rps7 = config_phase(
+        "linked primers", ["-a", fx.LINKED_PRIMERS, "--discard-untrimmed"],
+        amplicons,
+        lambda tables: "5'" if tables.spec.flags == Where.PREFIX.value
+        else "3'",
+        ["5'", "3'"],
+    )
+    path_nums = {}
+    for path, rec, launches in (("host_stages", rec6, launches6),
+                                ("linked", rec7, launches7)):
+        nums = kernel_numbers(rec, True, clock_mhz * 1e6, sms)
+        log(f"{path}: 2-bit kernel {shape_line(nums)}; plain "
+            f"{nums['plain_ms']:.3f} ms")
+        path_nums[path] = dict(
+            launches=launches["pack2"], warmup_launches=rec.warmup["pack2"],
+            by_task={t: rec.launches(True, t)
+                     for t in sorted({k[3] for k in rec.calls})},
+            max_abs_err=nums["max_abs_err"], plain_ms=nums["plain_ms"],
+            per_shape=[{key: d[key] for key in PER_SHAPE_KEYS}
+                       for d in nums["per_shape"]],
+        )
+        if nums["max_abs_err"] != 0:
+            fail(f"{path}: the kernel differs from the plain version")
+    log(f"host_stages_reads_per_sec {rps6}")
+    log(f"linked_reads_per_sec {rps7}")
+
     src = "cutadapt_tpu_torch/csrc/align_locate.cu"
     kernels = []
     for name, lane, launches, nums, pack2 in (
@@ -747,6 +937,13 @@ def main() -> int:
                 for d in nums["per_shape"]],
             cli=cli_nums[pack2],
         ))
+    # the paths of phases 6 and 7 launch the 2-bit lane only (their reads
+    # carry no N); the 4-bit lane's launches there are the warm-ups
+    kernels[0].update(path_nums)
+    for path, rec, launches in (("host_stages", rec6, launches6),
+                                ("linked", rec7, launches7)):
+        kernels[1][path] = dict(launches=launches["pack4"],
+                                warmup_launches=rec.warmup["pack4"])
     log(f"reads_per_sec {rps}")
     # the card again, near the end of the output
     log(nvidia_smi("name,power.limit"))

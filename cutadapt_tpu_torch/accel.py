@@ -6,21 +6,22 @@ identical to, the per-read host pipeline.
 
 The port of ``cutadapt_tpu/accel.py`` for single-end runs. Expressed
 today: FASTQ, FASTA or BAM in (plain or compressed), FASTQ or FASTA
-out; one AdapterCutter whose adapters are all of the packed kinds
-(regular, front, anywhere, non-internal, anchored with indels,
-rightmost), with --times and every action (trim, retain, crop, mask,
-lowercase, --no-trim); the filters -m/-M with routed outputs,
---discard-trimmed/untrimmed with --untrimmed-output, --max-n,
---max-ee, --max-aer and --discard-casava.
+out; the host stages -u, -q, --nextseq-trim, --poly-a, --trim-n and
+-l, in any order around one AdapterCutter whose adapters are of the
+kernel kinds (regular, front, anywhere, non-internal, anchored with
+indels, rightmost), linked, anchored without indels (the comparers) or
+anchored sets (the indexed kinds), with --times and every action (trim,
+retain, crop, mask, lowercase, --no-trim); the filters -m/-M with
+routed outputs, --discard-trimmed/untrimmed with --untrimmed-output,
+--max-n, --max-ee, --max-aer and --discard-casava.
 
 Everything else is refused in the translation, before an engine is
-built, with a reason: host stages (-u, -q, --nextseq-trim, --poly-a,
---length, --trim-n, --revcomp), linked, indexed and comparer adapters,
-adapters needing more than 16 query classes, name edits (--rename,
---strip-suffix, -x/-y, --length-tag) and --zero-cap, side files
-(--rest-file, --info-file, --wildcard-file), demultiplexing and
-paired-end pipelines. A refused run is counted (:data:`FALLBACK_COUNT`)
-and takes the per-read host path, or, under ``CUTADAPT_TPU_TORCH_BATCH=require``, fails with
+built, with a reason: --revcomp, adapters needing more than 16 query
+classes, name edits (--rename, --strip-suffix, -x/-y, --length-tag) and
+--zero-cap, side files (--rest-file, --info-file, --wildcard-file),
+demultiplexing and paired-end pipelines. A refused run is counted
+(:data:`FALLBACK_COUNT`) and takes the per-read host path, or, under
+``CUTADAPT_TPU_TORCH_BATCH=require``, fails with
 :class:`BatchRequiredError`.
 
 Environment (all read per run):
@@ -233,28 +234,23 @@ class _Refused(Exception):
 
 
 def _task_kind(adapter) -> str:
-    """The engine's task kind for a host adapter (a key of
-    batch_pipeline._KIND_INFO); raises _Refused for the kinds the
-    port's engine has no task for."""
-    from .batch_pipeline import _KIND_INFO
+    """The engine's task kind for a host adapter
+    (batch_pipeline.adapter_kind); raises _Refused where the engine, as
+    the reference's, has no task for it."""
+    from .batch_pipeline import adapter_kind
 
+    kind = adapter_kind(adapter)
+    if kind is not None:
+        return kind
     if getattr(adapter, "_force_anywhere", False):
         raise _Refused(
-            "adapters with the 'anywhere' search parameter are not ported "
-            "to the GPU engine yet"
+            "adapters with the 'anywhere' search parameter have no engine "
+            "form"
         )
-    kind = getattr(adapter, "kind", None)
-    if kind in ("prefix", "suffix") and not adapter.indels:
-        raise _Refused(
-            f"anchored {kind} adapters without indels (the comparer kind) "
-            "are not ported to the GPU engine yet"
-        )
-    if kind not in _KIND_INFO:
-        raise _Refused(
-            f"{kind or type(adapter).__name__} adapters are not ported to "
-            "the GPU engine yet"
-        )
-    return kind
+    raise _Refused(
+        f"{getattr(adapter, 'kind', None) or type(adapter).__name__} "
+        "adapters have no engine form"
+    )
 
 
 def _translate_tasks(cutter):
@@ -264,20 +260,52 @@ def _translate_tasks(cutter):
     tasks = []
     for i, adapter in enumerate(cutter.adapters):
         kind = _task_kind(adapter)
+        if kind == "linked" and cutter.action == "crop":
+            raise _Refused("linked adapters with --action=crop have no "
+                           "engine form")
         try:
             tasks.append(AdapterTask(adapter, kind, i))
-        except NotImplementedError as e:  # e.g. > 16 query classes
+        except (NotImplementedError, ValueError) as e:
+            # more than 16 query classes; a linked adapter whose parts
+            # have no task of their own
             raise _Refused(str(e)) from None
     return tasks
 
 
 def _translate_modifier(mod, has_cutter):
-    """Return (stage, cutter) for an eligible single-end modifier; the
-    port's engine runs one adapter stage and no host stage."""
+    """Return (stage, cutter or None) for an eligible single-end
+    modifier: a host stage, or the one adapter stage."""
     from . import native
-    from .batch_pipeline import AdapterStage
-    from .modifiers import AdapterCutter
+    from .batch_pipeline import (
+        AdapterStage, CutStage, NEndStage, NextseqStage, PolyAStage,
+        QualityStage, ShortenStage,
+    )
+    from .modifiers import (
+        AdapterCutter, NEndTrimmer, NextseqQualityTrimmer, PolyATrimmer,
+        QualityTrimmer, Shortener, UnconditionalCutter,
+    )
 
+    if isinstance(mod, UnconditionalCutter):
+        return CutStage(mod.length, mod), None
+    if isinstance(mod, Shortener):
+        return ShortenStage(mod.length, mod), None
+    if isinstance(mod, (NEndTrimmer, QualityTrimmer, NextseqQualityTrimmer,
+                        PolyATrimmer)) and not native.AVAILABLE:
+        # the engine's byte scans are native-only
+        raise _Refused(
+            f"modifier {type(mod).__name__} needs the native host library, "
+            "which did not build"
+        )
+    if isinstance(mod, NEndTrimmer):
+        return NEndStage(mod), None
+    if isinstance(mod, QualityTrimmer):
+        return QualityStage(
+            mod.cutoff_front, mod.cutoff_back, mod.base, mod
+        ), None
+    if isinstance(mod, NextseqQualityTrimmer):
+        return NextseqStage(mod.cutoff, mod.base, mod), None
+    if isinstance(mod, PolyATrimmer):
+        return PolyAStage(mod, revcomp=mod.revcomp), None
     if type(mod) is not AdapterCutter:
         raise _Refused(
             f"modifier {type(mod).__name__} is not ported to the GPU engine "
@@ -335,11 +363,28 @@ def _translate_single(pipeline, fasta: bool = False) -> SingleTranslation:
                 f"not assemble{' from FASTA input' if fasta else ''}"
             )
 
+    from .batch_pipeline import AdapterStage, NextseqStage, QualityStage
+
     stages = []
     cutter = None
     for mod in pipeline._modifiers:
-        stage, cutter = _translate_modifier(mod, cutter is not None)
+        stage, stage_cutter = _translate_modifier(mod, cutter is not None)
+        cutter = stage_cutter or cutter
         stages.append(stage)
+    if _transform_action(stages) is not None and not isinstance(
+        stages[-1], AdapterStage
+    ):
+        # the assembler rewrites the bytes outside the adapter stage's
+        # remainder; a later stage would see untransformed bytes
+        raise _Refused(
+            "a host stage after a mask/lowercase adapter stage has no "
+            "engine form"
+        )
+    if fasta and any(
+        isinstance(s, (QualityStage, NextseqStage)) for s in stages
+    ):
+        # FASTA carries no qualities: the host path owns that error
+        raise _Refused("quality trimming of FASTA input has no engine form")
 
     filters = []
     sink = None
@@ -372,7 +417,7 @@ def _transform_action(stages):
     """The mask/lowercase action of the stage list's adapter stage, if
     any (these need the transform assembler)."""
     for s in stages:
-        if s.action in _TRANSFORM_MODES:
+        if getattr(s, "action", None) in _TRANSFORM_MODES:
             return s.action
     return None
 
@@ -438,6 +483,13 @@ def _record_written(wl, side, hist):
 def _apply_side_stats(stats, stages, cutter, written_lengths):
     """Fold one chunk's engine stats for one side into the host
     pipeline objects. Returns total_bp of the side."""
+    for si, n in stats.get("quality_trimmed", {}).items():
+        stages[si].modifier.trimmed_bases += n
+    for si, removed in stats.get("poly_a_removed", {}).items():
+        mod = stages[si].modifier
+        for length, count in enumerate(np.bincount(removed)):
+            if count:
+                mod.trimmed_bases[int(length)] += int(count)
     if cutter is not None:
         cutter.with_adapters += stats.get("with_adapters", 0)
         stage = next(s for s in stages if hasattr(s, "tasks"))
@@ -448,6 +500,7 @@ def _apply_side_stats(stats, stages, cutter, written_lengths):
             rem = np.asarray(ev["removed"])
             err = np.asarray(ev["errors"])
             adj = np.asarray(ev["adjacent"])
+            # an indexed task credits the adapter each read matched
             for s in (np.unique(sub) if len(sub) else ()):
                 m = sub == s
                 astats = cutter.adapter_statistics[task.adapters[int(s)]]
@@ -514,7 +567,8 @@ def _setup_device(translated):
 def _on_device(fn, device):
     """fn run with ``device`` as the calling thread's current CUDA
     device (the drive calls submit and emit from several threads, and
-    the current device is per host thread)."""
+    the current device is per host thread; emit's collect launches the
+    3' phase of a linked adapter)."""
     if device.type != "cuda":
         return fn
     import torch

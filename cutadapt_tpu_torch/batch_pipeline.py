@@ -1,29 +1,39 @@
 """
-Batched single-end adapter-trimming engine on the GPU.
+Batched single-end trimming engine on the GPU.
 
-The port of ``cutadapt_tpu/batch_pipeline.py`` for one adapter stage
-(with ``times`` rounds) and the filters: each read carries a window
-[win_start, win_stop) into its original bytes; the adapter stage runs
-the exact-semantics DP on the device over the current windows of the
-reads that pass the host k-mer prefilter; matches shrink the windows;
-filters produce a keep-mask; the trimmed FASTQ is assembled from
-(window, keep) on the host.
+The port of ``cutadapt_tpu/batch_pipeline.py``: each read carries a
+window [win_start, win_stop) into its original bytes. Host stages
+(unconditional cuts, quality and NextSeq trimming, poly-A, N-end and
+shortening: C++ byte scans in native/hostops.cpp) update the windows
+directly; the one adapter stage (with ``times`` rounds) runs the
+exact-semantics DP on the device over the current windows of the reads
+that pass the host k-mer prefilter; matches shrink the windows; filters
+produce a keep-mask; the trimmed FASTQ is assembled from (window, keep)
+on the host.
 
-Per chunk the host work is: parse (C++), k-mer prefilter (C++), split
-of the candidates into the 2-bit lane (ACGT-only windows) and the 4-bit
-lane (windows with N/IUPAC bytes; a few of those go to the C++ scalar
-aligner instead), encode and pack into pinned buffers (C++), then one
-kernel launch per dispatch batch (``ops/align_cuda.py``). Results come
-back through pinned buffers behind CUDA events, so
-:func:`process_chunks_pipelined` overlaps chunk i's device work with
-chunk i+1's host work.
+Adapter tasks: the kernel kinds (regular, front, anywhere, non-internal,
+anchored with indels, rightmost), linked adapters (a 5' phase launched
+from :meth:`BatchPipelineEngine.submit`, a 3' phase launched from
+:meth:`BatchPipelineEngine.collect` on the 5' phase's remainders), and
+two host-only kinds: the anchored comparers without indels and the
+indexed anchored adapter sets (dict lookups).
 
-Not ported yet, and refused with NotImplementedError: host stages
-(cut, quality, NextSeq, poly-A, N-end, shorten), revcomp, linked,
-indexed and comparer adapters, adapters needing more than 16 query
-classes (the byte lane), adapter-side coordinates and windows of
-2**14 bp or more (the wide lane), quality capping before the filters,
-and the device mesh (:func:`set_shard_mesh`).
+Per chunk the host work is: parse (C++), the host stages before the
+adapter stage, k-mer prefilter (C++), split of the candidates into the
+2-bit lane (ACGT-only windows) and the 4-bit lane (windows with
+N/IUPAC bytes; a few of those go to the C++ scalar aligner instead),
+encode and pack into pinned buffers (C++), then one kernel launch per
+dispatch batch (``ops/align_cuda.py``). Results come back through
+pinned buffers behind CUDA events, so :func:`process_chunks_pipelined`
+overlaps chunk i's device work with chunk i+1's host work.
+
+Not ported yet, and refused with NotImplementedError: revcomp,
+adapters needing more than 16 query classes (the byte lane),
+adapter-side coordinates and windows of 2**14 bp or more (the wide
+lane), quality capping and header edits before the filters, and the
+device mesh (:func:`set_shard_mesh`). Several tasks of one stage
+dispatch one by one (the reference's shared upload is not ported; the
+results are the same).
 
 Reference semantics: modifiers at cutadapt:src/cutadapt/modifiers.py,
 selection order of MultipleAdapters.match_to at adapters.py:1265-1286.
@@ -128,9 +138,25 @@ def _eff_width(bmax: int, width: int, pack2: bool) -> int:
     return min(w, width)
 
 
-# kind -> (Where flags, reversed alignment, trim mode: 'before' |
-# 'after' | 'auto'); the packed single-adapter kinds, all flag sets of
-# the one aligner kernel
+def adapter_kind(adapter) -> Optional[str]:
+    """The AdapterTask kind of a host adapter, or None where the engine
+    has no task for it (the 'anywhere' search parameter, unknown
+    classes). The anchored adapters without indels become the comparer
+    kinds."""
+    if getattr(adapter, "_force_anywhere", False):
+        return None
+    kind = getattr(adapter, "kind", None)
+    if kind in ("prefix", "suffix") and not adapter.indels:
+        return kind + "_cmp"
+    if kind in _KIND_INFO or kind in (
+        "linked", "indexed_prefix", "indexed_suffix"
+    ):
+        return kind
+    return None
+
+
+# kind -> (Where flags of the aligner kernel, or None for the host
+# comparer; reversed alignment; trim mode: 'before' | 'after' | 'auto')
 _KIND_INFO = {
     "back": (Where.BACK.value, False, "after"),
     "front": (Where.FRONT.value, False, "before"),
@@ -141,6 +167,8 @@ _KIND_INFO = {
     "suffix": (Where.SUFFIX.value, False, "after"),
     "rightmost_front": (Where.BACK.value, True, "before"),
     "rightmost_back": (Where.FRONT.value, True, "after"),
+    "prefix_cmp": (None, False, "before"),
+    "suffix_cmp": (None, True, "after"),
 }
 
 
@@ -183,28 +211,61 @@ class DeviceResult:
 
 
 class AdapterTask:
-    """Device matching program for one adapter.
+    """Matching program for one adapter (or, indexed, one adapter set).
 
     The trim mode mirrors Remove{Before,After}Match (reference
     adapters.py:427-493): 'after' trims [qstart:], 'before' trims
     [:qstop], 'auto' (anywhere) picks 'before' when the match starts at
     read position 0. Rightmost variants align the reversed window
     (reversed reference, mirrored coordinates, adapters.py:657-786).
+    The *_cmp kinds are the anchored no-indel Prefix/SuffixComparer
+    scans and the indexed kinds the AdapterIndex lookups, both on the
+    host; a linked task holds a kernel task for each of its phases.
     """
 
     def __init__(self, adapter, kind: str, index: int):
         from .kmer_finder import KmerFinder
 
-        if kind not in _KIND_INFO:
+        if kind not in _KIND_INFO and kind not in (
+            "linked", "indexed_prefix", "indexed_suffix"
+        ):
             raise NotImplementedError(
                 f"adapter kind {kind!r} is not ported yet (ported: "
-                f"{', '.join(_KIND_INFO)})"
+                f"{', '.join(_KIND_INFO)}, linked, indexed_prefix, "
+                "indexed_suffix)"
             )
         self.adapter = adapter
         self.kind = kind
         self.index = index
+        self.indexed = kind in ("indexed_prefix", "indexed_suffix")
+        self.comparer = False
+        self.reverse = False
+        self.pf_tables = None
+        self.spec = None
         self.adapters = [adapter]  # flattened identities for routing
+        if self.indexed:
+            self._init_index(adapter)
+            return
+        if kind == "linked":
+            # 5' phase trims first, 3' phase searches the remainder
+            # (reference adapters.py:1064-1178)
+            self.trim = "linked"
+            fk = adapter_kind(adapter.front_adapter)
+            bk = adapter_kind(adapter.back_adapter)
+            if fk is None or bk is None or "linked" in (fk, bk):
+                raise ValueError("linked sub-adapter not batchable")
+            self.front_task = AdapterTask(adapter.front_adapter, fk, 0)
+            self.back_task = AdapterTask(adapter.back_adapter, bk, 1)
+            if (self.front_task.trim != "before"
+                    or self.back_task.trim != "after"):
+                raise ValueError("linked sub-adapter trim modes unsupported")
+            self.front_required = adapter.front_required
+            self.back_required = adapter.back_required
+            return
         flags, self.reverse, self.trim = _KIND_INFO[kind]
+        if flags is None:
+            self._init_comparer(adapter.aligner)
+            return
         reference = adapter.sequence[::-1] if self.reverse else adapter.sequence
         self.spec = AlignerSpec(
             reference=reference,
@@ -223,10 +284,62 @@ class AdapterTask:
             )
         self.lut = info[0]
         self.tables = make_tables(self.spec)
-        self.pf_tables = None
         if native.AVAILABLE and isinstance(adapter.kmer_finder, KmerFinder):
             self.pf_tables = native.PrefilterTables(adapter.kmer_finder)
         self._scalar = None  # lazy C++ per-read aligner (dirty lane)
+
+    def _init_comparer(self, cmp_) -> None:
+        """Anchored no-indel comparer: vectorized Hamming on the host
+        over byte-encoded windows (suffix windows reversed)."""
+        from .ops.tables import ACGT_LUT, IUPAC_LUT, UPPER_LUT
+
+        self.comparer = True
+        self.cmp_ref = np.frombuffer(cmp_.reference, np.uint8)
+        self.cmp_max_k = cmp_.max_k
+        self.cmp_min_overlap = cmp_.min_overlap
+        self.cmp_wildcards = cmp_.wildcard_ref or cmp_.wildcard_query
+        if cmp_.wildcard_query:
+            self.lut = IUPAC_LUT
+        elif cmp_.wildcard_ref:
+            self.lut = ACGT_LUT
+        else:
+            self.lut = UPPER_LUT
+
+    def _init_index(self, adapters) -> None:
+        """Anchored multi-adapter dict index (host lookups with the
+        exact AdapterIndex semantics, reference adapters.py:1396-1533);
+        one task stands for many adapters. With one key length, the
+        index is also a sorted fixed-width key array with payload
+        columns, queried with searchsorted (reads with N or shorter than
+        the key take the exact per-read path)."""
+        self.trim = "before" if self.kind == "indexed_prefix" else "after"
+        self.adapter_index = idx = adapters._index
+        self.adapters = list(idx._adapters)
+        self._sub_of = {id(a): i for i, a in enumerate(self.adapters)}
+        self._fast_len = None
+        if len(idx._lengths) == 1:
+            L = idx._lengths[0]
+            items = sorted(idx._index.items())
+            if items:
+                self._fast_len = L
+                self._fast_keys = np.array(
+                    [k.encode("ascii") for k, _ in items], dtype=f"S{L}"
+                )
+                self._fast_sub = np.array(
+                    [self._sub_of[id(v[0])] for _, v in items], np.int32
+                )
+                self._fast_err = np.array([v[1] for _, v in items], np.int32)
+                self._fast_score = np.array(
+                    [v[2] for _, v in items], np.int32
+                )
+
+    def kernel_tasks(self) -> list:
+        """The tasks of this one that launch the aligner kernel."""
+        if self.kind == "linked":
+            return self.front_task.kernel_tasks() + self.back_task.kernel_tasks()
+        if self.comparer or self.indexed:
+            return []
+        return [self]
 
     def run_scalar(self, chunk, starts, lens):
         """Per-read C++ DP over explicit windows: the zero-wire lane for
@@ -272,6 +385,87 @@ class AdapterTask:
             astart[i], astop[i], qs[i], qe[i], sc[i], er[i] = r
         return found, qs, qe, er, sc, astart, astop
 
+    def run_index(self, chunk, starts, lens):
+        """Per-read AdapterIndex lookups over the current windows.
+        Returns (found, qstart, qstop, errors, score, sub)."""
+        n = len(starts)
+        found = np.zeros(n, bool)
+        qs = np.zeros(n, np.int32)
+        qe = np.zeros(n, np.int32)
+        er = np.zeros(n, np.int32)
+        sc = np.zeros(n, np.int32)
+        sub = np.zeros(n, np.int32)
+        slow = np.arange(n)
+        if self._fast_len is not None and native.AVAILABLE and n:
+            from .ops.tables import UPPER_LUT
+
+            L = self._fast_len
+            ok = np.flatnonzero(lens >= L)
+            if len(ok):
+                aff_starts = starts[ok]
+                if self.kind == "indexed_suffix":
+                    aff_starts = aff_starts + (lens[ok] - L)
+                aff = native.pad_encode(
+                    chunk.buf, aff_starts.astype(np.int64),
+                    np.full(len(ok), L, np.int32),
+                    np.arange(len(ok), dtype=np.int64), L, UPPER_LUT,
+                )
+                has_n = (aff == ord("N")).any(axis=1)
+                queries = np.ascontiguousarray(aff).view(f"S{L}").ravel()
+                pos = np.searchsorted(self._fast_keys, queries)
+                pos_c = np.minimum(pos, len(self._fast_keys) - 1)
+                hit = (self._fast_keys[pos_c] == queries) & ~has_n
+                hi = ok[hit]
+                found[hi] = True
+                er[hi] = self._fast_err[pos_c[hit]]
+                sc[hi] = self._fast_score[pos_c[hit]]
+                sub[hi] = self._fast_sub[pos_c[hit]]
+                if self.kind == "indexed_prefix":
+                    qs[hi] = 0
+                    qe[hi] = L
+                else:
+                    qs[hi] = lens[hi] - L
+                    qe[hi] = lens[hi]
+                # N-containing affixes need the wildcard-aware
+                # re-alignment path; everything else is resolved
+                slow = ok[has_n]
+        buf = chunk.buf
+        match_to = self.adapter_index.match_to
+        for i in slow:
+            m = match_to(bytes(buf[starts[i] : starts[i] + lens[i]])
+                         .decode("latin-1"))
+            if m is None:
+                continue
+            found[i] = True
+            qs[i] = m.rstart
+            qe[i] = m.rstop
+            er[i] = m.errors
+            sc[i] = m.score
+            sub[i] = self._sub_of[id(m.adapter)]
+        return found, qs, qe, er, sc, sub
+
+    def run_comparer(self, enc: np.ndarray, lens: np.ndarray):
+        """Vectorized Prefix/SuffixComparer over byte-encoded windows
+        (suffix windows arrive reversed); enc is (B, m'), m' >= m."""
+        m = len(self.cmp_ref)
+        length = np.minimum(lens, m)
+        cols = enc[:, :m]
+        if self.cmp_wildcards:
+            mism = (cols & self.cmp_ref[None, :]) == 0
+        else:
+            mism = cols != self.cmp_ref[None, :]
+        in_prefix = np.arange(m)[None, :] < length[:, None]
+        errors = (mism & in_prefix).sum(axis=1).astype(np.int32)
+        found = (errors <= self.cmp_max_k) & (length >= self.cmp_min_overlap)
+        score = (length - 2 * errors).astype(np.int32)
+        if self.kind == "prefix_cmp":
+            qstart = np.zeros_like(length)
+            qstop = length.astype(np.int32)
+        else:  # suffix: forward coordinates (n - length, n)
+            qstart = (lens - length).astype(np.int32)
+            qstop = lens.astype(np.int32)
+        return found, qstart, qstop, errors, score
+
     def step(self, enc: torch.Tensor, lengths: torch.Tensor,
              device: torch.device, pack2: bool) -> DeviceResult:
         """Upload one encoded batch (host tensors, pinned when the
@@ -286,7 +480,63 @@ class AdapterTask:
         return DeviceResult(out)
 
 
-class AdapterStage:
+class Stage:
+    pass
+
+
+class CutStage(Stage):
+    """UnconditionalCutter (-u): remove first n (n>0) / last n (n<0)."""
+
+    def __init__(self, length: int, modifier=None):
+        self.length = length
+        self.modifier = modifier
+
+
+class QualityStage(Stage):
+    def __init__(self, cutoff_front: int, cutoff_back: int, base: int = 33,
+                 modifier=None):
+        self.cutoff_front = cutoff_front
+        self.cutoff_back = cutoff_back
+        self.base = base
+        self.modifier = modifier
+
+
+class NextseqStage(Stage):
+    def __init__(self, cutoff: int, base: int = 33, modifier=None):
+        self.cutoff = cutoff
+        self.base = base
+        self.modifier = modifier
+
+
+class PolyAStage(Stage):
+    """--poly-a: A-tail trimming, or T-head trimming in revcomp mode
+    (the R2 side of paired data)."""
+
+    def __init__(self, modifier=None, revcomp: bool = False):
+        self.modifier = modifier
+        self.revcomp = revcomp
+
+
+class NEndStage(Stage):
+    """NEndTrimmer (--trim-n): strip N runs from both read ends."""
+
+    def __init__(self, modifier=None):
+        self.modifier = modifier
+
+
+class ShortenStage(Stage):
+    """Shortener (-l): keep the first n (n>=0) / last -n bases."""
+
+    def __init__(self, length: int, modifier=None):
+        self.length = length
+        self.modifier = modifier
+
+
+_HOST_STAGES = (CutStage, QualityStage, NextseqStage, PolyAStage, NEndStage,
+                ShortenStage)
+
+
+class AdapterStage(Stage):
     def __init__(self, tasks: Sequence[AdapterTask], times: int = 1,
                  modifier=None, action: Optional[str] = "trim"):
         assert action in ("trim", None, "retain", "crop", "mask", "lowercase")
@@ -296,9 +546,14 @@ class AdapterStage:
         self.times = times
         self.modifier = modifier
         self.action = action
-        # flattened adapter ids for routing (demultiplexing)
-        self.gid_base = list(range(len(self.tasks)))
-        self.flat_adapters = [t.adapter for t in self.tasks]
+        # flattened adapter ids for routing (demultiplexing): an indexed
+        # task stands for all of its adapters
+        self.gid_base = []
+        off = 0
+        for t in self.tasks:
+            self.gid_base.append(off)
+            off += len(t.adapters)
+        self.flat_adapters = [a for t in self.tasks for a in t.adapters]
 
 
 class FilterSpec:
@@ -377,28 +632,29 @@ def filter_condition(kind, threshold, chunk, win_start, win_stop,
 class PendingBatch:
     __slots__ = (
         "parsed", "win_start", "win_stop", "stats", "adapter_stage",
-        "dp_futures", "width",
+        "post_stages", "dp_futures", "width",
     )
 
     def __init__(self, parsed, win_start, win_stop, stats, adapter_stage,
-                 dp_futures, width):
+                 post_stages, dp_futures, width):
         self.parsed = parsed
         self.win_start = win_start
         self.win_stop = win_stop
         self.stats = stats
         self.adapter_stage = adapter_stage
+        self.post_stages = post_stages
         self.dp_futures = dp_futures
         self.width = width
 
 
 class BatchPipelineEngine:
-    """Runs one adapter stage, then the filters, over parsed FASTQ
-    chunks on ``device`` (None: CUDA; ``"cpu"`` runs the aligner's plain
-    PyTorch version)."""
+    """Runs the host stages, at most one adapter stage and the filters
+    over parsed FASTQ chunks on ``device`` (None: CUDA; ``"cpu"`` runs
+    the aligner's plain PyTorch version)."""
 
     def __init__(
         self,
-        stages: Sequence[AdapterStage],
+        stages: Sequence[Stage],
         filters: Sequence[FilterSpec] = (),
         length_bucket: int = 64,
         min_dp_batch: int = 4096,
@@ -410,15 +666,16 @@ class BatchPipelineEngine:
         self.device = resolve_device(device)
         if qual_cap_base is not None:
             raise NotImplementedError(
-                "quality capping before the filters (a host stage) is not "
+                "quality capping before the filters (--zero-cap) is not "
                 "ported yet"
             )
         for s in stages:
-            if not isinstance(s, AdapterStage):
+            if type(s) is not AdapterStage and not isinstance(s, _HOST_STAGES):
                 raise NotImplementedError(
-                    f"{type(s).__name__}: host stages are not ported yet"
+                    f"{type(s).__name__}: the engine runs the host stages "
+                    "and one adapter stage; revcomp is not ported yet"
                 )
-        if len(stages) > 1:
+        if sum(isinstance(s, AdapterStage) for s in stages) > 1:
             raise ValueError("at most one adapter stage is supported")
         if want_ref_coords:
             raise NotImplementedError(
@@ -431,6 +688,73 @@ class BatchPipelineEngine:
         self.min_dp_batch = min_dp_batch
         self.max_dp_batch = max_dp_batch
         self._pinned = self.device.type == "cuda"
+        # split the stages at the adapter stage: everything after it
+        # depends on the DP results and runs in collect()
+        self._adapter_pos = next(
+            (i for i, s in enumerate(self.stages)
+             if isinstance(s, AdapterStage)),
+            None,
+        )
+
+    # --- host stages -------------------------------------------------------
+
+    def _apply_host_stage(self, si, stage, chunk, win_start, win_stop, stats):
+        """One host stage over every window; per-stage statistics are
+        keyed by the stage's index ``si`` in ``self.stages``."""
+        if isinstance(stage, CutStage):
+            n = stage.length
+            if n > 0:
+                win_start = np.minimum(win_start + n, win_stop)
+            else:
+                win_stop = np.maximum(win_stop + n, win_start)
+        elif isinstance(stage, QualityStage):
+            # both passes always run, like the host's quality_trim_index:
+            # a cutoff of 0 still trims bytes below the quality base
+            rs, re_ = native.quality_trim(
+                chunk.buf, chunk.qual_start, win_start, win_stop,
+                stage.cutoff_front, stage.cutoff_back, stage.base,
+            )
+            trimmed = (win_stop - win_start) - (re_ - rs)
+            stats.setdefault("quality_trimmed", {})[si] = int(trimmed.sum())
+            new_start = win_start + rs
+            win_stop = win_start + re_
+            win_start = new_start
+        elif isinstance(stage, NextseqStage):
+            re_ = native.nextseq_trim(
+                chunk.buf, chunk.seq_start, chunk.qual_start,
+                win_start, win_stop, stage.cutoff, stage.base,
+            )
+            trimmed = (win_stop - win_start) - re_
+            stats.setdefault("quality_trimmed", {})[si] = int(trimmed.sum())
+            win_stop = win_start + re_
+        elif isinstance(stage, PolyAStage):
+            idx = native.poly_a_trim(
+                chunk.buf, chunk.seq_start, win_start, win_stop,
+                revcomp=stage.revcomp,
+            )
+            if stage.revcomp:  # poly-T head: idx = head length removed
+                stats.setdefault("poly_a_removed", {})[si] = idx
+                win_start = win_start + idx
+            else:
+                removed = (win_stop - win_start) - idx
+                stats.setdefault("poly_a_removed", {})[si] = removed
+                win_stop = win_start + idx
+        elif isinstance(stage, NEndStage):
+            rs, re_ = native.trim_n_ends(
+                chunk.buf, chunk.seq_start, win_start, win_stop
+            )
+            new_start = win_start + rs
+            win_stop = win_start + re_
+            win_start = new_start
+        elif isinstance(stage, ShortenStage):
+            n = stage.length
+            if n >= 0:
+                win_stop = np.minimum(win_start + n, win_stop)
+            else:
+                win_start = np.maximum(win_stop + n, win_start)
+        else:
+            raise TypeError(f"not a host stage: {stage}")
+        return win_start, win_stop
 
     # --- adapter stage -----------------------------------------------------
 
@@ -462,51 +786,58 @@ class BatchPipelineEngine:
         return t.pin_memory() if self._pinned else t
 
     def warmup(self, max_len: int) -> None:
-        """Build the kernel library and launch every lane each adapter
-        task can use once, at the smallest dispatch size."""
+        """Build the kernel library and launch every lane each kernel
+        task can use once, at the smallest dispatch size (both phases of
+        a linked task; comparers and indexed tasks launch nothing)."""
         width = self._bucket_length(max_len)
         lanes = (True, False) if native.AVAILABLE and _pack2_on() else (False,)
         for stage in self.stages:
+            if not isinstance(stage, AdapterStage):
+                continue
             for task in stage.tasks:
-                for p2 in lanes:
-                    w_in = width // 4 if p2 else width // 2
-                    enc = self._host_tensor(
-                        np.zeros((self.min_dp_batch, w_in), np.uint8)
-                    )
-                    lens = self._host_tensor(
-                        np.zeros(self.min_dp_batch, np.int16)
-                    )
-                    task.step(enc, lens, self.device, pack2=p2).numpy()
+                for t in task.kernel_tasks():
+                    for p2 in lanes:
+                        w_in = width // 4 if p2 else width // 2
+                        enc = self._host_tensor(
+                            np.zeros((self.min_dp_batch, w_in), np.uint8)
+                        )
+                        lens = self._host_tensor(
+                            np.zeros(self.min_dp_batch, np.int16)
+                        )
+                        t.step(enc, lens, self.device, pack2=p2).numpy()
 
     def _encode(self, task, chunk, starts, lens, sel, rows, width,
-                pack2: bool) -> torch.Tensor:
-        """(rows, width/4 or /2) uint8 host tensor of the selected
-        windows, packed as 2-bit or 4-bit class ids."""
-        w_in = width // 4 if pack2 else width // 2
+                pack2: Optional[bool]) -> torch.Tensor:
+        """(rows, width/4, width/2 or width) uint8 host tensor of the
+        selected windows as 2-bit (pack2 True) or 4-bit (False) packed
+        class ids, or (None) one byte per base for the host comparer."""
+        if pack2 is None:
+            w_in = width
+        else:
+            w_in = width // 4 if pack2 else width // 2
         enc_t = torch.zeros((rows, w_in), dtype=torch.uint8,
-                            pin_memory=self._pinned)
+                            pin_memory=self._pinned and pack2 is not None)
         enc = enc_t.numpy()
         if native.AVAILABLE:
             native.pad_encode(
                 chunk.buf, starts, lens, sel, width, task.lut,
-                pack4=not pack2, pack2=pack2, out=enc, reverse=task.reverse,
+                pack4=pack2 is False, pack2=bool(pack2), out=enc,
+                reverse=task.reverse,
             )
         else:
-            from .io.chunks import pad_rows
-
-            raw = pad_rows(chunk.buf, starts[sel], lens[sel], width)
-            if task.reverse:
-                rev = np.zeros_like(raw)
-                for pos, (row, ln) in enumerate(zip(raw, lens[sel])):
-                    rev[pos, :ln] = row[:ln][::-1]
-                raw = rev
+            raw = np.zeros((len(sel), width), np.uint8)
+            for pos, i in enumerate(sel):
+                win = chunk.buf[starts[i] : starts[i] + lens[i]]
+                if task.reverse:
+                    win = win[::-1]
+                raw[pos, : min(len(win), width)] = win[:width]
             e = task.lut[raw]
             if pack2:
                 e = (
                     e[:, 0::4] | (e[:, 1::4] << 2)
                     | (e[:, 2::4] << 4) | (e[:, 3::4] << 6)
                 )
-            else:
+            elif pack2 is False:
                 e = e[:, 0::2] | (e[:, 1::2] << 4)
             enc[: len(sel)] = e
         return enc_t
@@ -514,13 +845,26 @@ class BatchPipelineEngine:
     def _dispatch_stage(self, stage, chunk, subset, win_start, win_stop,
                         width):
         """Prefilter + encode + dispatch of every task over `subset`'s
-        current windows; returns one (sel, futures) per task."""
-        starts = (chunk.seq_start[subset] + win_start[subset]).astype(np.int64)
-        lens = (win_stop[subset] - win_start[subset]).astype(np.int32)
+        current windows; one _dispatch_task result per task."""
         return [
-            self._dispatch_windows(t, chunk, starts, lens, width)
+            self._dispatch_task(t, chunk, subset, win_start, win_stop, width)
             for t in stage.tasks
         ]
+
+    def _dispatch_task(self, task, chunk, subset, win_start, win_stop, width):
+        """Dispatch one task over `subset`'s current windows. Returns
+        ('single', sel, futures) or, for a linked task, ('linked',
+        starts, lens, the 5' phase's (sel, futures)); positions are
+        relative to `subset`."""
+        starts = (chunk.seq_start[subset] + win_start[subset]).astype(np.int64)
+        lens = (win_stop[subset] - win_start[subset]).astype(np.int32)
+        if task.kind == "linked":
+            fd = self._dispatch_windows(
+                task.front_task, chunk, starts, lens, width
+            )
+            return ("linked", starts, lens, fd)
+        sel, futures = self._dispatch_windows(task, chunk, starts, lens, width)
+        return ("single", sel, futures)
 
     def _dispatch_windows(self, task, chunk, starts, lens, width):
         """Dispatch one task over explicit (starts, lens) window arrays;
@@ -531,14 +875,25 @@ class BatchPipelineEngine:
             ).astype(bool)
             sel = np.flatnonzero(mask)
         else:
-            # no prefilter (MockKmerFinder, native library unavailable):
-            # every read is a candidate
+            # no prefilter (MockKmerFinder, comparers, indexed tasks,
+            # native library unavailable): every read is a candidate
             sel = np.arange(len(starts))
         futures = []
         if len(sel) == 0:
             return sel, futures
         c_starts = starts[sel]
         c_lens = lens[sel]
+        if task.indexed:
+            futures.append(("host",) + task.run_index(chunk, c_starts, c_lens))
+            return sel, futures
+        if task.comparer:
+            m_w = (len(task.cmp_ref) + 1) // 2 * 2
+            enc = self._encode(
+                task, chunk, c_starts, c_lens,
+                np.arange(len(sel), dtype=np.int64), len(sel), m_w, None,
+            ).numpy()
+            futures.append(("host",) + task.run_comparer(enc, c_lens))
+            return sel, futures
         if int(c_lens.max()) >= (1 << _QS_BITS):
             raise NotImplementedError(
                 "windows of 2**14 bp or more need the wide result lane, "
@@ -644,16 +999,27 @@ class BatchPipelineEngine:
         return sel, futures
 
     def _fetch_task(self, n_cand, futures):
+        """One task's results over its n_cand candidates: (found,
+        qstart, qstop, errors, score, sub-adapter id, astart, astop)."""
         found = np.zeros(n_cand, bool)
         qstart = np.zeros(n_cand, np.int32)
         qstop = np.zeros(n_cand, np.int32)
         errors = np.zeros(n_cand, np.int32)
         score = np.zeros(n_cand, np.int32)
+        sub = np.zeros(n_cand, np.int32)
         # adapter-side spans: only the scalar lane reports them (the
         # packed device result carries none)
         astart = np.zeros(n_cand, np.int32)
         astop = np.zeros(n_cand, np.int32)
         for fut in futures:
+            if fut[0] == "host":  # comparer/index result, complete
+                if len(fut) == 7:  # indexed: carries sub-adapter ids
+                    (_, found[:], qstart[:], qstop[:], errors[:],
+                     score[:], sub[:]) = fut
+                else:
+                    (_, found[:], qstart[:], qstop[:], errors[:],
+                     score[:]) = fut
+                continue
             if fut[0] == "host_range":  # scalar-aligner dirty tail
                 _, off, f, qs, qe, er, sc, as_, ae = fut
                 count = len(f)
@@ -669,7 +1035,77 @@ class BatchPipelineEngine:
             qstop[off : off + count] = qe
             errors[off : off + count] = er
             score[off : off + count] = sc
-        return found, qstart, qstop, errors, score, astart, astop
+        return found, qstart, qstop, errors, score, sub, astart, astop
+
+    def _fetch_windows(self, task, sel, futures, lens):
+        """Fetch one task's results over `sel`'s positions, with
+        coordinates mirrored to forward orientation: (found, qstart,
+        qstop, errors, score)."""
+        f, qs, qe, er, sc, _, _, _ = self._fetch_task(len(sel), futures)
+        if task.reverse and not task.comparer:
+            L = lens[sel]
+            qs, qe = L - qe, L - qs
+        return f, qs, qe, er, sc
+
+    def _resolve_linked(self, task, chunk, starts, lens, front_disp, width):
+        """Run the two-phase linked matching: fetch the 5' phase,
+        dispatch and fetch the 3' phase over the remainders. Returns a
+        dict of arrays over the subset positions (window-relative
+        coordinates; 3' coordinates relative to the remainder)."""
+        n = len(starts)
+        sel_f, fut_f = front_disp
+        ff, fqs, fqe, fer, fsc = self._fetch_windows(
+            task.front_task, sel_f, fut_f, lens
+        )
+        front_found = np.zeros(n, bool)
+        front_found[sel_f] = ff
+        front_qs = np.zeros(n, np.int32)
+        front_qs[sel_f] = np.where(ff, fqs, 0)
+        front_qe = np.zeros(n, np.int32)
+        front_qe[sel_f] = np.where(ff, fqe, 0)
+        front_er = np.zeros(n, np.int32)
+        front_er[sel_f] = np.where(ff, fer, 0)
+        front_sc = np.zeros(n, np.int32)
+        front_sc[sel_f] = np.where(ff, fsc, 0)
+
+        el = np.flatnonzero(front_found) if task.front_required else np.arange(n)
+        back_found = np.zeros(n, bool)
+        back_qs = np.zeros(n, np.int32)
+        back_qe = np.zeros(n, np.int32)
+        back_er = np.zeros(n, np.int32)
+        back_sc = np.zeros(n, np.int32)
+        if len(el):
+            starts_b = starts[el] + front_qe[el]
+            lens_b = lens[el] - front_qe[el]
+            sel_b, fut_b = self._dispatch_windows(
+                task.back_task, chunk, starts_b, lens_b, width
+            )
+            bf, bqs, bqe, ber, bsc = self._fetch_windows(
+                task.back_task, sel_b, fut_b, lens_b
+            )
+            hit = el[sel_b]
+            back_found[hit] = bf
+            back_qs[hit] = np.where(bf, bqs, 0)
+            back_qe[hit] = np.where(bf, bqe, 0)
+            back_er[hit] = np.where(bf, ber, 0)
+            back_sc[hit] = np.where(bf, bsc, 0)
+
+        found = (front_found | (not task.front_required)) & (
+            back_found | (front_found & (not task.back_required))
+        )
+        return dict(
+            found=found,
+            score=front_sc + back_sc,
+            errors=front_er + back_er,
+            front_found=front_found,
+            front_qs=front_qs,
+            front_qe=front_qe,
+            front_errors=front_er,
+            back_found=back_found,
+            back_qs=back_qs,
+            back_qe=back_qe,
+            back_errors=back_er,
+        )
 
     def _adapter_round(self, stage, chunk, subset, win_start, win_stop,
                        width, dispatched=None, last_gid=None):
@@ -689,19 +1125,41 @@ class BatchPipelineEngine:
         best_astart = np.zeros(B, np.int32)
         best_astop = np.zeros(B, np.int32)
         best_task = np.full(B, -1, np.int32)
-        for t_i, (task, (sel, futures)) in enumerate(
-            zip(stage.tasks, dispatched)
-        ):
-            if len(sel) == 0:
-                continue
-            cand = subset[sel]
-            lens = (win_stop[cand] - win_start[cand]).astype(np.int32)
-            f, qs, qe, er, sc, as_, ae = self._fetch_task(len(sel), futures)
-            if task.reverse:
-                # mirror reversed coordinates to forward orientation
-                qs, qe = lens - qe, lens - qs
-                m_len = len(task.spec.reference)
-                as_, ae = m_len - ae, m_len - as_
+        best_sub = np.zeros(B, np.int32)
+        linked_results = {}
+        for t_i, (task, disp) in enumerate(zip(stage.tasks, dispatched)):
+            if disp[0] == "linked":
+                _, starts, lens, front_disp = disp
+                res = self._resolve_linked(
+                    task, chunk, starts, lens, front_disp, width
+                )
+                linked_results[t_i] = res
+                cand = subset
+                f, er, sc = res["found"], res["errors"], res["score"]
+                qs = qe = as_ = ae = sub = np.zeros(len(subset), np.int32)
+            else:
+                _, sel, futures = disp
+                if len(sel) == 0:
+                    continue
+                cand = subset[sel]
+                lens = (win_stop[cand] - win_start[cand]).astype(np.int32)
+                f, qs, qe, er, sc, sub, as_, ae = self._fetch_task(
+                    len(sel), futures
+                )
+                if task.reverse and not task.comparer:
+                    # mirror reversed coordinates to forward orientation
+                    qs, qe = lens - qe, lens - qs
+                    m_len = len(task.spec.reference)
+                    as_, ae = m_len - ae, m_len - as_
+                if task.comparer:
+                    # anchored comparers always report the full span
+                    as_ = np.zeros_like(qs)
+                    ae = np.full_like(qs, len(task.cmp_ref))
+                elif task.indexed:
+                    as_ = np.zeros_like(qs)
+                    ae = np.array(
+                        [len(a.sequence) for a in task.adapters], np.int32
+                    )[sub]
             better = f & (
                 ~best_found[cand]
                 | (sc > best_score[cand])
@@ -716,16 +1174,26 @@ class BatchPipelineEngine:
             best_astart[upd] = as_[better]
             best_astop[upd] = ae[better]
             best_task[upd] = t_i
+            best_sub[upd] = sub[better]
 
         matched = best_found[subset]
         # routing ids for demultiplexing: the LAST match decides
         if last_gid is not None:
             idx = np.flatnonzero(best_found)
-            last_gid[idx] = np.asarray(stage.gid_base, np.int32)[best_task[idx]]
+            last_gid[idx] = (
+                np.asarray(stage.gid_base, np.int32)[best_task[idx]]
+                + best_sub[idx]
+            )
         events = []
         for t_i, task in enumerate(stage.tasks):
             hit = np.flatnonzero(best_found & (best_task == t_i))
             if len(hit) == 0:
+                continue
+            if task.trim == "linked":
+                self._linked_events(
+                    stage, chunk, t_i, linked_results[t_i], subset, hit,
+                    win_start, win_stop, events,
+                )
                 continue
             qs = best_qstart[hit]
             qe = best_qstop[hit]
@@ -748,7 +1216,7 @@ class BatchPipelineEngine:
             events.append(
                 dict(task=t_i, reads=hit, removed=removed, errors=er,
                      as_front=as_front, adjacent=adjacent,
-                     sub=np.zeros(len(hit), np.int32),
+                     sub=best_sub[hit],
                      # match geometry for side-channel writers: the
                      # window the match was found in, its window-
                      # relative [qs, qe) read coordinates, and the
@@ -778,24 +1246,102 @@ class BatchPipelineEngine:
                 win_stop[bk] = win_start[bk] + qs[~as_front]
         return matched, events
 
+    @staticmethod
+    def _linked_events(stage, chunk, t_i, res, subset, hit, win_start,
+                       win_stop, events):
+        """The events of a linked task's matched reads `hit`, one per
+        phase that matched (5' with the ';1' info-row suffix, 3' with
+        ';2'), and the action's window update."""
+        pos = np.searchsorted(subset, hit)
+        ws0 = win_start[hit].copy()
+        we0 = win_stop[hit].copy()
+        ffm = res["front_found"][pos]
+        bfm = res["back_found"][pos]
+        f_qe_all = res["front_qe"][pos]
+        # 5' phase event: removed = front.rstop
+        fh = hit[ffm]
+        if len(fh):
+            events.append(
+                dict(task=t_i, reads=fh, removed=f_qe_all[ffm],
+                     errors=res["front_errors"][pos][ffm],
+                     as_front=np.ones(len(fh), bool),
+                     adjacent=np.zeros(len(fh), np.uint8),
+                     sub=np.zeros(len(fh), np.int32),
+                     suffix=";1",
+                     # per-read statistics credit one LinkedMatch per
+                     # read and round, not one per phase: the 5' event
+                     # is the primary, the 3' event only for 3'-only
+                     # matches
+                     primary=np.ones(len(fh), bool),
+                     qs=res["front_qs"][pos][ffm],
+                     qe=f_qe_all[ffm],
+                     ws=ws0[ffm], we=we0[ffm])
+            )
+        # 3' phase event (coordinates relative to the remainder after
+        # the 5' phase; adjacent base from that window)
+        bh = hit[bfm]
+        if len(bh):
+            b_qs = res["back_qs"][pos][bfm]
+            post_ws = ws0[bfm] + f_qe_all[bfm]
+            cur_len = (we0[bfm] - post_ws).astype(np.int32)
+            adj_pos = chunk.seq_start[bh] + post_ws + b_qs - 1
+            adjacent = np.where(
+                b_qs > 0, chunk.buf[np.clip(adj_pos, 0, None)], 0
+            )
+            events.append(
+                dict(task=t_i, reads=bh, removed=cur_len - b_qs,
+                     errors=res["back_errors"][pos][bfm],
+                     as_front=np.zeros(len(bh), bool),
+                     adjacent=adjacent,
+                     sub=np.zeros(len(bh), np.int32),
+                     suffix=";2",
+                     primary=(~ffm)[bfm],
+                     qs=b_qs,
+                     qe=res["back_qe"][pos][bfm],
+                     ws=post_ws, we=we0[bfm])
+            )
+        if stage.action == "retain":
+            # retained interval on the original read: [front.rstart,
+            # front.rstop + back.rstop) (reference adapters.py:1027-1037)
+            win_start[hit] = np.where(ffm, ws0 + res["front_qs"][pos], ws0)
+            win_stop[hit] = np.where(
+                bfm, ws0 + f_qe_all + res["back_qe"][pos], we0
+            )
+        else:  # trim (or None/mask/lowercase, restored later)
+            win_start[hit] = np.where(ffm, ws0 + f_qe_all, ws0)
+            win_stop[hit] = np.where(
+                bfm, win_start[hit] + res["back_qs"][pos], we0
+            )
+
     # --- public API --------------------------------------------------------
 
     def submit(self, parsed) -> PendingBatch:
-        """Start a chunk: prefilter, encode and launch its DP batches."""
+        """Start a chunk: the host stages before the adapter stage, then
+        prefilter, encode and launch its DP batches."""
         B = parsed.n_records
         win_start = np.zeros(B, np.int32)
         win_stop = parsed.seq_len.astype(np.int32).copy()
         stats = dict(n=B, total_bp=int(parsed.seq_len.sum()))
-        stage = self.stages[0] if self.stages else None
+        pos = self._adapter_pos
+        if pos is None:
+            pos = len(self.stages)
+        for si, stage in enumerate(self.stages[:pos]):
+            win_start, win_stop = self._apply_host_stage(
+                si, stage, parsed, win_start, win_stop, stats
+            )
+        stage = None
         dp_futures = None
         width = 0
-        if stage is not None and B > 0:
-            width = self._bucket_length(int((win_stop - win_start).max()))
-            dp_futures = self._dispatch_stage(
-                stage, parsed, np.arange(B), win_start, win_stop, width
-            )
+        if self._adapter_pos is not None:
+            stage = self.stages[pos]
+            if B > 0:
+                width = self._bucket_length(int((win_stop - win_start).max()))
+                dp_futures = self._dispatch_stage(
+                    stage, parsed, np.arange(B), win_start, win_stop, width
+                )
         return PendingBatch(
-            parsed, win_start, win_stop, stats, stage, dp_futures, width
+            parsed, win_start, win_stop, stats, stage, self.stages[pos + 1 :],
+            dp_futures, width,
         )
 
     def _run_rounds(self, stage, chunk, win_start, win_stop, width,
@@ -823,8 +1369,10 @@ class BatchPipelineEngine:
         return matched_any, events_all
 
     def collect(self, pending: PendingBatch):
-        """Finish a chunk: fetch the DP results, update the windows, run
-        the filters. Returns (win_start, win_stop, keep, stats)."""
+        """Finish a chunk: fetch the DP results (a linked task's 3'
+        phase is dispatched and fetched here), update the windows, run
+        the host stages after the adapter stage, then the filters.
+        Returns (win_start, win_stop, keep, stats)."""
         chunk = pending.parsed
         B = chunk.n_records
         win_start, win_stop = pending.win_start, pending.win_stop
@@ -855,6 +1403,11 @@ class BatchPipelineEngine:
             stats["with_adapters"] = int(matched_any.sum())
         stats["matched_mask"] = matched_any
         stats["last_adapter_gid"] = last_gid
+        base_si = len(self.stages) - len(pending.post_stages)
+        for j, post in enumerate(pending.post_stages):
+            win_start, win_stop = self._apply_host_stage(
+                base_si + j, post, chunk, win_start, win_stop, stats
+            )
         # filters (first matching filter claims the read, like the host
         # step order)
         keep = np.ones(B, bool)

@@ -244,10 +244,10 @@ def test_fallback_counted_on_refused_case_only(port_env, tmp_path):
     assert accel.FALLBACK_COUNT == fallbacks
     assert plain_runs() > runs
 
-    _, out = run_case("cut_front", tmp_path)
-    assert read(out) == read(golden_path(BY_ID["cut_front"][2]))
+    _, out = run_case("strip_suffix", tmp_path)
+    assert read(out) == read(golden_path(BY_ID["strip_suffix"][2]))
     assert accel.FALLBACK_COUNT == fallbacks + 1
-    assert ENGINE_NOT_YET["cut_front"] in accel.LAST_FALLBACK
+    assert ENGINE_NOT_YET["strip_suffix"] in accel.LAST_FALLBACK
 
 
 # options whose pipeline the engine refuses, with the reason it gives
@@ -261,6 +261,9 @@ REFUSED_OPTIONS = [
     (["-x", "pre_"], "modifier PrefixSuffixAdder"),
     (["--revcomp"], "modifier ReverseComplementer"),
     (["-a", "ACGTACGT;anywhere"], "'anywhere' search parameter"),
+    (["--action=mask", "--poly-a"], "after a mask/lowercase adapter stage"),
+    (["-a", "^TTAGACATAT...GGGGGG", "--action=crop"],
+     "linked adapters with --action=crop"),
 ]
 
 
@@ -307,6 +310,16 @@ def test_paired_end_is_refused(port_env, tmp_path, caplog):
                   data.replace("paired.1", "paired.2")])
     assert e.value.code == 1
     assert "paired-end pipelines are not ported" in caplog.text
+
+
+def test_quality_trimming_of_fasta_is_refused(port_env, tmp_path, caplog):
+    port_env.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
+    with pytest.raises(SystemExit) as e:
+        cli.main(["-q", "10", "-a", "TTAGACATAT", "-o",
+                  str(tmp_path / "out.fasta"),
+                  golden_args([], "", "multi.fasta")[-1]])
+    assert e.value.code == 1
+    assert "quality trimming of FASTA input" in caplog.text
 
 
 def test_shard_is_refused(port_env, tmp_path, caplog):

@@ -166,8 +166,75 @@ def test_engine_on_card_matches_cpu(card):
         assert stats["with_adapters"] == wstats["with_adapters"]
 
 
+def _engine_on_card_and_cpu(stages_fn, filters, data, records=1000):
+    """The same chunks through the engine on the card and on the CPU:
+    outputs and statistics equal. Returns the launch counters of the
+    card's run."""
+    chunks, _ = fx.split_records(data, records)
+    sizes = dict(min_dp_batch=256, max_dp_batch=1024)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        align_cuda.reset_launch_counters()
+        engine = tbp.BatchPipelineEngine(
+            stages_fn(), [tbp.FilterSpec(k, t) for k, t in filters],
+            device=device, **sizes,
+        )
+        outs[device] = list(tbp.process_chunks_pipelined(engine, chunks))
+        if device == "cuda":
+            launches = dict(align_cuda.LAUNCHES)
+            assert align_cuda.PLAIN_RUNS == {"pack2": 0, "pack4": 0}
+    assert len(outs["cuda"]) == len(outs["cpu"]) == len(chunks)
+    for (out, stats), (wout, wstats) in zip(outs["cuda"], outs["cpu"]):
+        assert out == wout
+        for key in ("with_adapters", "quality_trimmed", "filter_counts",
+                    "written"):
+            assert stats.get(key) == wstats.get(key), key
+        for key in ("poly_a_removed",):
+            for si, removed in wstats.get(key, {}).items():
+                np.testing.assert_array_equal(stats[key][si], removed)
+    return launches
+
+
+@pytest.mark.cuda
+def test_linked_engine_on_card_matches_cpu(card, monkeypatch):
+    """The linked primers of chip_smoke.py's phase 7: the 5' phase
+    launches from submit, the 3' phase from collect, both in the 2-bit
+    lane; the card's output equals the CPU engine's."""
+    phases = []
+    real = tbp.locate_packed
+    monkeypatch.setattr(
+        tbp, "locate_packed",
+        lambda enc, lens, tables, pack2: phases.append(
+            (tables.spec.flags, pack2, enc.device.type))
+        or real(enc, lens, tables, pack2),
+    )
+    launches = _engine_on_card_and_cpu(
+        lambda: [fx.cutter_stage(fx.PORT_MODULES,
+                                 [("back", fx.LINKED_PRIMERS)])[0]],
+        [("discard_untrimmed", None)], fx.make_amplicons(3000, seed=35),
+    )
+    assert launches["pack2"] > 0
+    on_card = {(f, p2) for f, p2, dev in phases if dev == "cuda"}
+    prefix, back = tbp.Where.PREFIX.value, tbp.Where.BACK.value
+    assert {(prefix, True), (back, True)} <= on_card
+
+
+@pytest.mark.cuda
+def test_quality_trimmed_windows_on_card_matches_cpu(card):
+    """-q 20 -a ADAPTER --poly-a -m 10 (chip_smoke.py's phase 6) on
+    reads of which 3% are trimmed to nothing by -q and others start
+    past 0: empty rows and shifted windows reach the kernel."""
+    data = fx.edit_reads(fx.make_reads(4000, 3, [fx.ADAPTER], polya=True), 4)
+    launches = _engine_on_card_and_cpu(
+        lambda: [tbp.QualityStage(0, 20), tbp.AdapterStage(
+            [tbp.AdapterTask(fx.make_adapter(), "back", 0)]),
+            tbp.PolyAStage()],
+        [("too_short", 10)], data,
+    )
+    assert launches["pack2"] > 0 and launches["pack4"] > 0
+
+
 GOLDEN = fx.golden_cases()
-ADAPTER_OPTIONS = ("-a", "-g", "-b", "--adapter", "--front", "--anywhere")
 ENGINE_GOLDEN = [c for c in GOLDEN if c[0] not in fx.ENGINE_NOT_YET]
 
 
@@ -186,16 +253,23 @@ def test_cli_golden_on_card(card, monkeypatch, tmp_path, case):
     monkeypatch.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
     out = tmp_path / expected
     fallbacks = accel.FALLBACK_COUNT
+    # the warm-up launches both lanes once per kernel task; the reads
+    # add more
+    warm = []
+    real_warmup = tbp.BatchPipelineEngine.warmup
+
+    def counted_warmup(engine, max_len):
+        real_warmup(engine, max_len)
+        warm.append(sum(align_cuda.LAUNCHES.values()))
+
+    monkeypatch.setattr(tbp.BatchPipelineEngine, "warmup", counted_warmup)
     align_cuda.reset_launch_counters()
     cli.main(fx.golden_args(params, str(out), inpath))
     with open(out, "rb") as got, open(fx.golden_path(expected), "rb") as want:
         assert got.read() == want.read()
     assert accel.FALLBACK_COUNT == fallbacks
     assert align_cuda.PLAIN_RUNS == {"pack2": 0, "pack4": 0}
-    # the warm-up launches both lanes once per adapter; the reads add more
-    words = params.split() if isinstance(params, str) else params
-    warm = 2 * sum(w in ADAPTER_OPTIONS for w in words)
-    data_launches = sum(align_cuda.LAUNCHES.values()) - warm
+    data_launches = sum(align_cuda.LAUNCHES.values()) - sum(warm)
     if case_id in fx.NO_ALIGNER_RUN:
         assert data_launches == 0
     else:

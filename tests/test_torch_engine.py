@@ -55,21 +55,6 @@ def _engines(kind="back", filters=(), times=1, action="trim", **adapter_kw):
     return jax_engine, port_engine
 
 
-def _assert_same(got, want, path="stats"):
-    if isinstance(want, dict):
-        assert sorted(got) == sorted(want), path
-        for k in want:
-            _assert_same(got[k], want[k], f"{path}[{k!r}]")
-    elif isinstance(want, (list, tuple)):
-        assert len(got) == len(want), path
-        for i, (g, w) in enumerate(zip(got, want)):
-            _assert_same(g, w, f"{path}[{i}]")
-    elif isinstance(want, np.ndarray):
-        np.testing.assert_array_equal(got, want, err_msg=path)
-    else:
-        assert got == want, path
-
-
 @pytest.mark.parametrize(
     "kind,filters,times,action",
     [
@@ -91,7 +76,7 @@ def test_engine_matches_jax(reads, kind, filters, times, action):
     np.testing.assert_array_equal(ws, jws)
     np.testing.assert_array_equal(we, jwe)
     np.testing.assert_array_equal(keep, jkeep)
-    _assert_same(stats, jstats)
+    fx.assert_same(stats, jstats)
     assert stats["with_adapters"] > 0
     assert assemble_window(chunk, ws, we, keep) == jax_assemble(
         jax_chunk, jws, jwe, jkeep
@@ -130,7 +115,7 @@ def test_process_chunks_pipelined_matches_jax(reads):
     assert len(got) == len(want) == 3
     for (out, stats), (jout, jstats) in zip(got, want):
         assert out == jout
-        _assert_same(stats, jstats)
+        fx.assert_same(stats, jstats)
     assert b"".join(o for o, _ in got) == b"".join(o for o, _ in want)
 
 
@@ -166,9 +151,13 @@ def test_unported_paths_raise():
     tbp.set_shard_mesh(None)
     with pytest.raises(NotImplementedError, match="mesh"):
         tbp.set_shard_mesh(object())
-    for kind in ("linked", "prefix_cmp", "indexed_prefix"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tbp.AdapterTask(adapter, kind, 0)
+    class RevcompStage(tbp.AdapterStage):
+        pass
+
+    with pytest.raises(NotImplementedError, match="revcomp"):
+        tbp.BatchPipelineEngine([RevcompStage([task])], device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tbp.AdapterTask(adapter, "unknown", 0)
     long_read = b"@r\n" + b"A" * (1 << 14) + b"\n+\n" + b"I" * (1 << 14) + b"\n"
     engine = tbp.BatchPipelineEngine(
         [tbp.AdapterStage([tbp.AdapterTask(tad.BackAdapter(

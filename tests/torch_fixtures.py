@@ -18,8 +18,9 @@ The flagship workload is single-end 3' trimming of the TruSeq adapter
   ``Match.trimmed``), the oracle the engine's output is held to.
 
 The golden cases of the CLI: :func:`golden_cases` reads the JAX package's
-list of single-end golden cases without importing its test module, and
-:data:`ENGINE_NOT_YET` names the cases the port's engine refuses yet.
+list of single-end golden cases without importing its test module,
+:data:`ENGINE_NOT_YET` names the cases the port's engine refuses yet, and
+:data:`NO_ALIGNER_RUN` those it accepts but gives the aligner no work.
 
 The parity matrix holds the batched aligner to other forms of the same
 contract: 13 adapter specs spanning the adapter kinds and flag sets, and
@@ -42,7 +43,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from cutadapt_tpu_torch import native
+from cutadapt_tpu_torch import accel, batch_pipeline, modifiers, native, parser
 from cutadapt_tpu_torch.adapters import BackAdapter, Where
 from cutadapt_tpu_torch.batch_pipeline import (
     AdapterStage,
@@ -117,6 +118,113 @@ def make_dataset(n_reads: int, read_len: int = READ_LEN,
     return out.tobytes()
 
 
+def make_reads(n, seed, adapters, frac=0.3, polya=False) -> bytes:
+    """A copy of ``bench_configs.make_reads`` (that module imports the JAX
+    package): FASTQ records ``@r<i>/1 c`` of 40-100 random bases with
+    phred 2-40 qualities; ``frac`` of them carry one of ``adapters`` at
+    position 10 or later, and with ``polya`` 30% end in an A tail of
+    3-19 bases. The workload of the repo's configuration ``-q 20 -a
+    ADAPTER --poly-a -m 10`` (bench_configs.py:132-135)."""
+    rng = np.random.RandomState(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for i in range(n):
+        L = int(rng.randint(40, READ_LEN + 1))
+        s = bytearray(bases[rng.randint(0, 4, L)].tobytes())
+        if adapters and rng.rand() < frac:
+            ad = adapters[rng.randint(len(adapters))].encode()
+            p = int(rng.randint(10, max(11, L - 4)))
+            take = min(len(ad), L - p)
+            s[p : p + take] = ad[:take]
+        if polya and rng.rand() < 0.3:
+            tail = min(int(rng.randint(3, 20)), L - 1)
+            s[L - tail :] = b"A" * tail
+        q = rng.randint(35, 74, L).astype(np.uint8).tobytes()
+        out.append(b"@r%d/1 c\n%s\n+\n%s\n" % (i, bytes(s), q))
+    return b"".join(out)
+
+
+# Earth Microbiome Project 16S V4 primers: 515F (Parada) and the reverse
+# complement of 806R (Apprill), as a linked adapter trims them from
+# merged amplicon reads (cutadapt user guide, "Linked adapters")
+PRIMER_515F = "GTGYCAGCMGCCGCGGTAA"
+PRIMER_806R_RC = "ATTAGAWACCCBNGTAGTCC"
+LINKED_PRIMERS = f"^{PRIMER_515F}...{PRIMER_806R_RC}"
+_IUPAC_BASES = {"A": "A", "C": "C", "G": "G", "T": "T", "Y": "CT",
+                "M": "AC", "W": "AT", "B": "CGT", "N": "ACGT"}
+
+
+def _draw_primer(rng: np.random.RandomState, primer: str, n: int):
+    """(n, len(primer)) bytes: each IUPAC position drawn per read."""
+    return np.stack([
+        np.frombuffer(_IUPAC_BASES[c].encode(), np.uint8)[
+            rng.randint(len(_IUPAC_BASES[c]), size=n)]
+        for c in primer
+    ], axis=1)
+
+
+def fastq_records(seqs: np.ndarray, seq_len: np.ndarray,
+                  quals: np.ndarray) -> bytes:
+    """FASTQ records ``@r<i>`` from row-padded (n, W) sequence and
+    quality bytes, read i holding the first seq_len[i] of its row."""
+    n = len(seq_len)
+    names = [f"@r{i}\n".encode() for i in range(n)]
+    name_lens = np.array([len(x) for x in names], np.int64)
+    lens = seq_len.astype(np.int64)
+    rec_lens = name_lens + 2 * lens + 4
+    out = np.empty(int(rec_lens.sum()), np.uint8)
+    pos = np.cumsum(rec_lens) - rec_lens
+    out[np.repeat(pos, name_lens) + _ragged_offsets(name_lens)] = \
+        np.frombuffer(b"".join(names), np.uint8)
+    in_read = np.arange(seqs.shape[1])[None, :] < lens[:, None]
+    seq_pos = pos + name_lens
+    idx = np.repeat(seq_pos, lens) + _ragged_offsets(lens)
+    out[idx] = seqs[in_read]
+    out[seq_pos + lens] = ord("\n")
+    out[seq_pos + lens + 1] = ord("+")
+    out[seq_pos + lens + 2] = ord("\n")
+    out[idx + (lens + 3).repeat(lens)] = quals[in_read]
+    out[pos + rec_lens - 1] = ord("\n")
+    return out.tobytes()
+
+
+def _ragged_offsets(lens: np.ndarray) -> np.ndarray:
+    """0..lens[i]-1 for each i, concatenated."""
+    total = int(lens.sum())
+    return np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+
+
+def make_amplicons(n_reads: int, seed: int = 515) -> bytes:
+    """Synthetic merged 16S V4 amplicon reads: the 515F primer (IUPAC
+    positions drawn per read; missing from 5% of the reads), a 240-260 bp
+    random insert, the reverse complement of 806R, then a substitution at
+    1% of the bases; 260-299 bp per read, phred 20-40."""
+    rng = np.random.RandomState(seed)
+    n = n_reads
+    fwd = _draw_primer(rng, PRIMER_515F, n)
+    rev = _draw_primer(rng, PRIMER_806R_RC, n)
+    has_fwd = rng.rand(n) >= 0.05
+    f_len = np.where(has_fwd, len(PRIMER_515F), 0)
+    rev_start = f_len + rng.randint(240, 261, n)
+    seq_len = rev_start + len(PRIMER_806R_RC)
+    width = int(seq_len.max())
+    codes = rng.randint(0, 4, (n, width)).astype(np.uint8)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    seqs = bases[codes]
+    seqs[:, : len(PRIMER_515F)] = np.where(
+        has_fwd[:, None], fwd, seqs[:, : len(PRIMER_515F)])
+    rows = np.repeat(np.arange(n), len(PRIMER_806R_RC))
+    cols = (rev_start[:, None] + np.arange(len(PRIMER_806R_RC))).ravel()
+    seqs[rows, cols] = rev.ravel()
+    sub = rng.randint(0, 100, (n, width), dtype=np.uint8) == 0
+    code_of = np.zeros(256, np.uint8)
+    code_of[bases] = np.arange(4)
+    shifted = (code_of[seqs] + rng.randint(1, 4, (n, width))) % 4
+    seqs = np.where(sub, bases[shifted], seqs)
+    quals = rng.randint(33 + 20, 33 + 41, (n, width)).astype(np.uint8)
+    return fastq_records(seqs, seq_len, quals)
+
+
 def add_ns(data: bytes, fraction: float, seed: int = 5) -> bytes:
     """Copy of a FASTQ buffer in which ``fraction`` of the reads carry
     one to three N bases at random positions."""
@@ -131,6 +239,25 @@ def add_ns(data: bytes, fraction: float, seed: int = 5) -> bytes:
     first = reads[chunk.seq_len[reads] > 0]
     buf[chunk.seq_start[first] + rng.randint(0, 4, len(first))] = ord("N")
     return buf.tobytes()
+
+
+def edit_reads(data: bytes, seed: int) -> bytes:
+    """The hard cases of the host stages: 3% of the reads with every
+    quality at phred 2 (``-q`` trims them to nothing), 8% starting and
+    8% ending in a run of 1-4 N, and N bases inside 10% (add_ns)."""
+    chunk = parse_fastq_chunk(data)
+    buf = np.frombuffer(data, np.uint8).copy()
+    rng = np.random.RandomState(seed)
+    n = chunk.n_records
+    for i in np.flatnonzero(rng.rand(n) < 0.03):
+        q = chunk.qual_start[i]
+        buf[q : q + chunk.seq_len[i]] = ord("#")
+    for at_end in (False, True):
+        for i in np.flatnonzero(rng.rand(n) < 0.08):
+            k = rng.randint(1, 5)
+            s = chunk.seq_start[i] + (chunk.seq_len[i] - k if at_end else 0)
+            buf[s : s + k] = ord("N")
+    return add_ns(buf.tobytes(), 0.1, seed=seed + 1)
 
 
 def split_records(data: bytes, records_per_chunk: int):
@@ -169,6 +296,44 @@ def host_trim(data: bytes, n_records: int):
     return b"".join(out), matched
 
 
+def assert_same(got, want, path="stats"):
+    """Nested dicts, lists and arrays (engine statistics) equal, key for
+    key and element for element; ``path`` names the first difference."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for k in want:
+            assert_same(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{path}[{i}]")
+    elif isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert got == want, path
+
+
+# the port's modules that build an adapter stage from adapter specs, in
+# the order cutter_stage takes them
+PORT_MODULES = (parser, modifiers, accel, batch_pipeline)
+
+
+def cutter_stage(pkg, specs, action="trim", times=1, **params):
+    """The adapter stage a package's CLI builds for adapter specs
+    [(type, spec)]: parser, AdapterCutter (indexed regrouping) and the
+    translation of its adapters into tasks. ``pkg`` holds the package's
+    modules as PORT_MODULES does; returns (stage, tasks)."""
+    pkg_parser, pkg_modifiers, pkg_accel, pkg_bp = pkg
+    search = dict(max_errors=0.1, min_overlap=3, read_wildcards=False,
+                  adapter_wildcards=True, indels=True)
+    search.update(params)
+    adapters = pkg_parser.make_adapters_from_specifications(specs, search)
+    cutter = pkg_modifiers.AdapterCutter(adapters, times=times, action=action)
+    tasks = pkg_accel._translate_tasks(cutter)
+    assert tasks is not None
+    return pkg_bp.AdapterStage(tasks, times=times, action=action), tasks
+
+
 # --- the golden cases of the CLI ---------------------------------------------
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -178,38 +343,31 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 # error). A case leaves this dict when a later slice ports what it names.
 ENGINE_NOT_YET = {
     "length_tag": "modifier LengthTagModifier",
-    "trim_n": "modifier NEndTrimmer",
-    "qualtrim": "modifier QualityTrimmer",
-    "qualbase": "modifier QualityTrimmer",
-    "quality_trim_only": "modifier QualityTrimmer",
-    "polya": "modifier PolyATrimmer",
-    "anchored_back_no_indels": "anchored suffix adapters without indels",
     "strip_suffix": "modifier SuffixRemover",
-    "anchored_no_indels": "anchored prefix adapters without indels",
-    "anchored_no_indels_wildcard_read":
-        "anchored prefix adapters without indels",
-    "anchored_no_indels_wildcard_adapt":
-        "anchored prefix adapters without indels",
-    "cut_front": "modifier UnconditionalCutter",
-    "cut_back": "modifier UnconditionalCutter",
-    "cut_both": "modifier UnconditionalCutter",
-    "multiple_fake_anchored": "indexed_prefix adapters",
-    "multiple_prefix": "indexed_prefix adapters",
-    "multiple_prefix_noindels": "indexed_prefix adapters",
-    "multiple_suffix_noindels": "indexed_suffix adapters",
-    "nextseq": "modifier NextseqQualityTrimmer",
-    "linked_anchored": "linked adapters",
-    "linked_multiple": "linked adapters",
-    "linked_both_anchored": "linked adapters",
-    "linked_5p_not_anchored": "linked adapters",
-    "linked_discard_untrimmed": "linked adapters",
-    "linked_discard_untrimmed_g": "linked adapters",
-    "linked_lowercase": "linked adapters",
-    "length": "modifier Shortener",
-    "negative_length": "modifier Shortener",
 }
 # Accepted cases in which the aligner has nothing to do
-NO_ALIGNER_RUN = {"fasta_no_trim": "no adapter", "empty_wildcard": "no reads"}
+NO_ALIGNER_RUN = {
+    "fasta_no_trim": "no adapter",
+    "empty_wildcard": "no reads",
+    "trim_n": "host stage only",
+    "quality_trim_only": "host stage only",
+    "polya": "host stage only",
+    "cut_front": "host stage only",
+    "cut_back": "host stage only",
+    "cut_both": "host stages only",
+    "nextseq": "host stage only",
+    "length": "host stage only",
+    "negative_length": "host stage only",
+    "qualtrim": "the k-mer prefilter passes no read for XXXXXX",
+    "qualbase": "the k-mer prefilter passes no read for XXXXXX",
+    "anchored_back_no_indels": "comparer (host) task only",
+    "anchored_no_indels": "comparer (host) task only",
+    "anchored_no_indels_wildcard_read": "comparer (host) task only",
+    "anchored_no_indels_wildcard_adapt": "comparer (host) task only",
+    "multiple_prefix": "indexed (host) task only",
+    "multiple_prefix_noindels": "indexed (host) task only",
+    "multiple_suffix_noindels": "indexed (host) task only",
+}
 
 
 def golden_cases():
