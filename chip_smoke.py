@@ -38,8 +38,8 @@ Phases, each of which must pass:
    dirty file through main, each lane's launches there (the engine's
    warm-up apart) with its time, bound and parity against the plain
    version at every shape the CLI launched; then every golden case the
-   engine accepts (tests/torch_fixtures.py) through main on the card,
-   byte-identical to tests/cut/;
+   engine accepts (tests/torch_fixtures.py), single-end and paired,
+   through main on the card, byte-identical to tests/cut/;
 6. host stages: the repo's configuration -q 20 -a ADAPTER --poly-a -m 10
    (bench_configs.py:132-135) on 524,288 reads of 40-100 bp (30% with
    the adapter, 30% with an A tail, phred 2-40) through main under
@@ -54,16 +54,30 @@ Phases, each of which must pass:
    (the 16S V4 primers 515F and 806R), on 262,144 synthetic amplicon
    reads of 260-299 bp, held and measured as phase 6; the 5' phase
    launches the kernel from submit, the 3' phase from collect, and each
-   must launch the 2-bit lane.
+   must launch the 2-bit lane;
+8. paired TruSeq: -a AGATCGGAAGAGCACACGTCTGAACTCCAGTCA -A
+   AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT -q 20 -m 20 -o -p (the TruSeq R1/R2
+   adapters of cutadapt's user guide, Trim Galore's default -q 20 -m 20)
+   on 262,144 pairs of 2 x 150 bp (torch_fixtures.make_pairs), held to
+   the host path on both output files and the report (read counts, base
+   pairs, the adapter statistics of both reads) and measured as phase 6
+   (reads/s with a pair counted as one read); R1 launches from the first
+   engine, R2 from the second, and each side must launch both lanes;
+9. revcomp amplicons: --revcomp -g ^GTGYCAGCMGCCGCGGTAA
+   --discard-untrimmed on 131,072 make_amplicons reads, half of them
+   reverse-complemented, held and measured as phase 6; both orientations
+   launch from submit and each must launch the 2-bit lane, and about half
+   the reads must come out reverse-complemented.
 
 Launch counters are set to 0 just before each counted window (the main
 path's warm pass, the dirty lane, each counted CLI run, the golden
-cases, the counted runs of phases 6 and 7) and read just after; each
+cases, the counted runs of phases 6 to 9) and read just after; each
 lane the window carries must have been launched there. Prints the
 card's name and power limit, one JSON line with every kernel's numbers
 (time, bound, time / bound and error at every shape the path launched,
-and the same for the CLI's shapes under "cli" and for phases 6 and 7
-under "host_stages" and "linked", by task), and as the last line
+and the same for the CLI's shapes under "cli" and for phases 6 to 9
+under "host_stages", "linked", "paired" (by side) and "revcomp" (by
+orientation)), and as the last line
 {"ok": true, "device": {...}}.
 
 The workload and the parity matrix come from tests/torch_fixtures.py.
@@ -75,6 +89,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -85,6 +100,10 @@ N_DIRTY_READS = 262144
 # phase 6 (bench_configs.py:132-135) and phase 7 (linked 16S primers)
 N_POLYA_READS = 524288
 N_AMPLICON_READS = 262144
+# phase 8 (paired TruSeq, pairs of 2 x 150 bp) and phase 9 (revcomp
+# amplicons)
+N_PAIRS = 262144
+N_RC_AMPLICON_READS = 131072
 PARITY_READS = 1024
 PARITY_LENGTHS = (128, 512)
 # reads for the adapters past the flagship's width (long_specs)
@@ -504,11 +523,25 @@ def cli_phase(files, engine_rps: float) -> dict:
                     fail(f"cli golden case {case_id}: output differs from "
                          f"tests/cut/{expected}")
             ran += 1
+        for case_id, params, in1, in2, exp1, exp2 in fx.paired_golden_cases():
+            # the outputs' extensions name their format, as the golden
+            # files' do
+            outs = [os.path.join(tmp, f"golden_{i}_{expected}")
+                    for i, expected in ((1, exp1), (2, exp2))]
+            cli.main(fx.paired_golden_args(params, *outs, in1, in2))
+            for out, expected in zip(outs, (exp1, exp2)):
+                with open(out, "rb") as f, \
+                        open(fx.golden_path(expected), "rb") as g:
+                    if f.read() != g.read():
+                        fail(f"cli paired golden case {case_id}: output "
+                             f"differs from tests/cut/{expected}")
+            ran += 1
         golden = dict(align_cuda.LAUNCHES)
         if min(golden.values()) <= 0:
             fail(f"cli golden cases: a kernel lane was never launched: "
                  f"{golden}")
-        log(f"cli: {ran} accepted golden cases byte-identical on the card; "
+        log(f"cli: {ran} accepted golden cases (single-end and paired) "
+            f"byte-identical on the card; "
             f"their launches (warm-ups included) {golden}")
     if accel.FALLBACK_COUNT != fallbacks:
         fail(f"cli: {accel.FALLBACK_COUNT - fallbacks} fallbacks "
@@ -521,21 +554,63 @@ def report_parts(path: str) -> dict:
     with open(path) as f:
         rep = json.load(f)
     return {k: rep[k] for k in ("read_counts", "basepair_counts",
-                                "adapters_read1")}
+                                "adapters_read1", "adapters_read2")}
 
 
-def config_phase(label, args, data, task_of, tasks):
-    """Phases 6 and 7: one configuration through cli.main on the card
+class OrientationTags:
+    """Labels the kernel launches of a --revcomp run with the orientation
+    of the dispatch they came from: "forward" for the chunk that submit
+    got, "rc" for its reverse-complemented copy. While active, the
+    engine's submit and _dispatch_stage note the chunk in a thread-local;
+    an instance is a Recorder's task function."""
+
+    def __init__(self):
+        self.local = threading.local()
+
+    def __enter__(self):
+        import cutadapt_tpu_torch.batch_pipeline as bp
+
+        engine = bp.BatchPipelineEngine
+        self.saved = real_submit, real_dispatch = (engine.submit,
+                                                   engine._dispatch_stage)
+        local = self.local
+
+        def submit(eng, parsed):
+            local.parsed = parsed
+            return real_submit(eng, parsed)
+
+        def dispatch(eng, stage, chunk, *args):
+            local.tag = ("forward" if chunk is getattr(local, "parsed", None)
+                         else "rc")
+            return real_dispatch(eng, stage, chunk, *args)
+
+        engine.submit, engine._dispatch_stage = submit, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        import cutadapt_tpu_torch.batch_pipeline as bp
+
+        bp.BatchPipelineEngine.submit, bp.BatchPipelineEngine._dispatch_stage \
+            = self.saved
+
+    def __call__(self, tables) -> str:
+        return getattr(self.local, "tag", "")
+
+
+def config_phase(label, args, inputs, task_of, tasks, lanes=(True,)):
+    """Phases 6 to 9: one configuration through cli.main on the card
     under CUTADAPT_TPU_TORCH_BATCH=require at -j 1, held to the port's
-    per-read host path (CUTADAPT_TPU_TORCH_BATCH=0): the output file
-    byte for byte, and the report's read counts, base-pair counts and
-    adapter statistics. A first run, TIMED_PASSES timed runs (reads/s
-    through main, the median), then one counted run: launch counters at
-    0 just before it, read just after, each launch's shape recorded by
-    task (task_of(tables) in `tasks`), every task must launch the 2-bit
-    lane; the engine that run built then takes one sequential pass over
-    the same reads for the host time per stage. Returns (recorder,
-    launches, reads/s)."""
+    per-read host path (CUTADAPT_TPU_TORCH_BATCH=0): each output file
+    byte for byte (-o, and -p when ``inputs`` holds two files, R1 and
+    R2), and the report's read counts, base-pair counts and adapter
+    statistics. A first run, TIMED_PASSES timed runs (reads/s through
+    main, the median; a pair counts as one read), then one counted run:
+    launch counters at 0 just before it, read just after, each launch's
+    shape recorded by task (task_of(tables) in `tasks`), every task must
+    launch each lane of `lanes` (True: 2-bit, False: 4-bit); the engines
+    that run built then take one sequential pass over their side's reads
+    for the host time per stage. Returns (recorder, launches, reads/s,
+    the median wall time in seconds, the counted run's report parts)."""
     import tempfile
 
     import cutadapt_tpu_torch.adapters as port_adapters
@@ -544,40 +619,51 @@ def config_phase(label, args, data, task_of, tasks):
     from cutadapt_tpu_torch import accel, cli
     from cutadapt_tpu_torch.ops import align_cuda
 
-    n_reads = data.count(b"\n") // 4
+    n_reads = inputs[0].count(b"\n") // 4
     fallbacks = accel.FALLBACK_COUNT
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cfg_") as tmp:
-        inp = os.path.join(tmp, "in.fastq")
-        with open(inp, "wb") as f:
-            f.write(data)
+        paths = []
+        for i, data in enumerate(inputs):
+            paths.append(os.path.join(tmp, f"in.{i + 1}.fastq"))
+            with open(paths[-1], "wb") as f:
+                f.write(data)
 
         def run(tag, mode):
             os.environ["CUTADAPT_TPU_TORCH_BATCH"] = mode
             # adapters without a name are numbered per process
             port_adapters._adapter_counter = [0]
-            out = os.path.join(tmp, f"{tag}.fastq")
+            outs = [os.path.join(tmp, f"{tag}.{i + 1}.fastq")
+                    for i in range(len(inputs))]
             rep = os.path.join(tmp, f"{tag}.json")
+            argv = [*args, "-o", outs[0]]
+            if len(outs) > 1:
+                argv += ["-p", outs[1]]
             t0 = time.perf_counter()
-            cli.main([*args, "-o", out, "--json", rep, inp])
+            cli.main(argv + ["--json", rep, *paths])
             dt = time.perf_counter() - t0
-            with open(out, "rb") as f:
-                got = f.read()
-            os.unlink(out)
+            got = []
+            for out in outs:
+                with open(out, "rb") as f:
+                    got.append(f.read())
+                os.unlink(out)
             return got, report_parts(rep), dt
 
         want, want_rep, dt = run("host", "0")
-        log(f"{label}: {n_reads} reads ({len(data)} bytes) through the "
-            f"per-read host path: {dt:.1f} s, {len(want)} bytes out, "
-            f"read counts {want_rep['read_counts']}, base pairs "
+        log(f"{label}: {n_reads} reads ({sum(map(len, inputs))} bytes in "
+            f"{len(inputs)} files) through the per-read host path: "
+            f"{dt:.1f} s, {[len(w) for w in want]} bytes out, read counts "
+            f"{want_rep['read_counts']}, base pairs "
             f"{want_rep['basepair_counts']}")
 
         def engine_run(tag):
             got, rep, dt = run(tag, "require")
-            if got != want:
-                pos = next((i for i, (a, b) in enumerate(zip(got, want))
-                            if a != b), min(len(got), len(want)))
-                fail(f"{label} {tag}: output differs from the host path at "
-                     f"byte {pos} ({len(got)} vs {len(want)} bytes)")
+            for side, (g, w) in enumerate(zip(got, want)):
+                if g != w:
+                    pos = next((i for i, (a, b) in enumerate(zip(g, w))
+                                if a != b), min(len(g), len(w)))
+                    fail(f"{label} {tag}: output {side + 1} differs from the "
+                         f"host path at byte {pos} ({len(g)} vs {len(w)} "
+                         f"bytes)")
             for key in want_rep:
                 if rep[key] != want_rep[key]:
                     fail(f"{label} {tag}: report {key} {rep[key]} differs "
@@ -595,7 +681,8 @@ def config_phase(label, args, data, task_of, tasks):
                 f"{n_reads / walls[-1]:.1f} reads/s, at most "
                 f"{accel.flight_metrics()['max']} chunks in flight")
         walls.sort()
-        rps = n_reads / walls[len(walls) // 2]
+        wall = walls[len(walls) // 2]
+        rps = n_reads / wall
 
         times = accel.RUN_TIMES
         rec = Recorder(bp.locate_packed,
@@ -604,9 +691,9 @@ def config_phase(label, args, data, task_of, tasks):
         engines = []
         setup = accel._setup_device
 
-        def kept_setup(translated):
-            engines.append(setup(translated))
-            return engines[-1]
+        def kept_setup(*sides, **kw):
+            engines.extend(setup(*sides, **kw))
+            return engines
 
         accel._setup_device = kept_setup
         bp.locate_packed = rec
@@ -620,21 +707,23 @@ def config_phase(label, args, data, task_of, tasks):
     if accel.FALLBACK_COUNT != fallbacks:
         fail(f"{label}: {accel.FALLBACK_COUNT - fallbacks} fallbacks "
              f"({accel.LAST_FALLBACK})")
-    per_task = {t: rec.launches(True, t) for t in tasks}
+    per_task = {(t, "2-bit" if p2 else "4-bit"): rec.launches(p2, t)
+                for t in tasks for p2 in lanes}
     log(f"{label}: one run through main: launches {launches}, of which "
-        f"warm-up {rec.warmup}; 2-bit launches by task {per_task}; per "
+        f"warm-up {rec.warmup}; launches by task and lane {per_task}; per "
         f"shape { {k: rec.calls.count(k) for k in sorted(rec.inputs)} }")
-    missing = [t for t, n in per_task.items() if n <= 0]
+    missing = [k for k, n in per_task.items() if n <= 0]
     if missing:
-        fail(f"{label}: the 2-bit lane was never launched for {missing}")
-    chunks, _ = fx.split_records(data, fx.CHUNK_RECORDS)
-    stages = stage_breakdown(engines[0], chunks, n_reads)
-    log(f"{label}: the run's engine, one sequential pass in chunks of "
-        f"{fx.CHUNK_RECORDS} reads, host ns/read by stage "
-        f"{ {k: round(v, 1) for k, v in stages.items()} }")
+        fail(f"{label}: these tasks and lanes were never launched: {missing}")
+    for side, (engine, data) in enumerate(zip(engines, inputs)):
+        chunks, _ = fx.split_records(data, fx.CHUNK_RECORDS)
+        stages = stage_breakdown(engine, chunks, n_reads)
+        log(f"{label}: the run's engine {side + 1}, one sequential pass in "
+            f"chunks of {fx.CHUNK_RECORDS} reads, host ns/read by stage "
+            f"{ {k: round(v, 1) for k, v in stages.items()} }")
     log(f"{label}: median {rps:.1f} reads/s through main over "
         f"{TIMED_PASSES} runs")
-    return rec, launches, rps
+    return rec, launches, rps, wall, want_rep
 
 
 def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2: bool):
@@ -877,10 +966,11 @@ def main() -> int:
     polya = fx.make_reads(N_POLYA_READS, 1, [fx.ADAPTER], polya=True)
     log(f"host stages: {N_POLYA_READS} reads generated "
         f"({time.perf_counter() - t0:.1f} s)")
-    rec6, launches6, rps6 = config_phase(
+    rec6, launches6, rps6, _, _ = config_phase(
         "host stages", ["-q", "20", "-a", fx.ADAPTER, "--poly-a", "-m", "10"],
-        polya, lambda tables: "3'", ["3'"],
+        [polya], lambda tables: "3'", ["3'"],
     )
+    del polya
     # 7. linked primers: the 5' phase (PREFIX) launches from submit, the
     # 3' phase (BACK) from collect
     from cutadapt_tpu_torch.adapters import Where
@@ -889,31 +979,85 @@ def main() -> int:
     amplicons = fx.make_amplicons(N_AMPLICON_READS)
     log(f"linked primers: {N_AMPLICON_READS} reads generated "
         f"({time.perf_counter() - t0:.1f} s)")
-    rec7, launches7, rps7 = config_phase(
+    rec7, launches7, rps7, _, _ = config_phase(
         "linked primers", ["-a", fx.LINKED_PRIMERS, "--discard-untrimmed"],
-        amplicons,
+        [amplicons],
         lambda tables: "5'" if tables.spec.flags == Where.PREFIX.value
         else "3'",
         ["5'", "3'"],
     )
-    path_nums = {}
-    for path, rec, launches in (("host_stages", rec6, launches6),
-                                ("linked", rec7, launches7)):
-        nums = kernel_numbers(rec, True, clock_mhz * 1e6, sms)
-        log(f"{path}: 2-bit kernel {shape_line(nums)}; plain "
-            f"{nums['plain_ms']:.3f} ms")
-        path_nums[path] = dict(
-            launches=launches["pack2"], warmup_launches=rec.warmup["pack2"],
-            by_task={t: rec.launches(True, t)
-                     for t in sorted({k[3] for k in rec.calls})},
-            max_abs_err=nums["max_abs_err"], plain_ms=nums["plain_ms"],
-            per_shape=[{key: d[key] for key in PER_SHAPE_KEYS}
-                       for d in nums["per_shape"]],
+    del amplicons
+    # 8. paired TruSeq: R1's adapter launches from the first engine, R2's
+    # from the second; the reads' N take each side to the 4-bit lane too
+    t0 = time.perf_counter()
+    pairs = fx.make_pairs(N_PAIRS)
+    log(f"paired: {N_PAIRS} pairs of 2 x {fx.PAIR_READ_LEN} bp generated "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rec8, launches8, rps8, wall8, _ = config_phase(
+        "paired", ["-a", fx.TRUSEQ_R1, "-A", fx.TRUSEQ_R2, "-q", "20",
+                   "-m", "20"],
+        list(pairs),
+        lambda tables: "R1" if tables.spec.reference == fx.TRUSEQ_R1
+        else "R2",
+        ["R1", "R2"], lanes=(True, False),
+    )
+    del pairs
+    # 9. revcomp amplicons: the forward and the rc dispatch of each chunk
+    # both launch from submit
+    t0 = time.perf_counter()
+    rc_amplicons = fx.make_amplicons(N_RC_AMPLICON_READS, rc_share=0.5)
+    log(f"revcomp: {N_RC_AMPLICON_READS} reads, half reverse-complemented, "
+        f"generated ({time.perf_counter() - t0:.1f} s)")
+    with OrientationTags() as orientation:
+        rec9, launches9, rps9, wall9, rep9 = config_phase(
+            "revcomp", ["--revcomp", "-g", "^" + fx.PRIMER_515F,
+                        "--discard-untrimmed"],
+            [rc_amplicons], orientation, ["forward", "rc"],
         )
-        if nums["max_abs_err"] != 0:
-            fail(f"{path}: the kernel differs from the plain version")
+    del rc_amplicons
+    rc_share = rep9["read_counts"]["reverse_complemented"] / N_RC_AMPLICON_READS
+    log(f"revcomp: {rep9['read_counts']['reverse_complemented']} reads "
+        f"reverse-complemented ({rc_share:.4f} of the reads), equal to the "
+        f"host path's")
+    if not 0.35 <= rc_share <= 0.65:
+        fail(f"revcomp: {rc_share:.4f} of the reads were reverse-"
+             f"complemented, not about half")
+    busy = {}
+    path_lanes = {}
+    for path, rec, launches, lanes, wall in (
+        ("host_stages", rec6, launches6, (True,), None),
+        ("linked", rec7, launches7, (True,), None),
+        ("paired", rec8, launches8, (True, False), wall8),
+        ("revcomp", rec9, launches9, (True,), wall9),
+    ):
+        device_ms = 0.0
+        for pack2 in lanes:
+            lane = "pack2" if pack2 else "pack4"
+            nums = kernel_numbers(rec, pack2, clock_mhz * 1e6, sms)
+            log(f"{path}: {'2-bit' if pack2 else '4-bit'} kernel "
+                f"{shape_line(nums)}; plain {nums['plain_ms']:.3f} ms")
+            if nums["max_abs_err"] != 0:
+                fail(f"{path}: the kernel differs from the plain version")
+            device_ms += nums["run_kernel_ms"]
+            path_lanes.setdefault(pack2, {})[path] = dict(
+                launches=launches[lane], warmup_launches=rec.warmup[lane],
+                by_task={t: rec.launches(pack2, t)
+                         for t in sorted({k[3] for k in rec.calls
+                                          if k[0] == pack2})},
+                max_abs_err=nums["max_abs_err"], plain_ms=nums["plain_ms"],
+                run_kernel_ms=nums["run_kernel_ms"],
+                per_shape=[{key: d[key] for key in PER_SHAPE_KEYS}
+                           for d in nums["per_shape"]],
+            )
+        if wall is not None:
+            busy[path] = device_ms / 1e3 / wall
+            log(f"{path}: device time of the counted run's launches "
+                f"{device_ms:.4f} ms against a median wall of {wall:.3f} s: "
+                f"idle share {1 - busy[path]:.6f}")
     log(f"host_stages_reads_per_sec {rps6}")
     log(f"linked_reads_per_sec {rps7}")
+    log(f"paired_reads_per_sec {rps8}")
+    log(f"revcomp_reads_per_sec {rps9}")
 
     src = "cutadapt_tpu_torch/csrc/align_locate.cu"
     kernels = []
@@ -937,11 +1081,14 @@ def main() -> int:
                 for d in nums["per_shape"]],
             cli=cli_nums[pack2],
         ))
-    # the paths of phases 6 and 7 launch the 2-bit lane only (their reads
-    # carry no N); the 4-bit lane's launches there are the warm-ups
-    kernels[0].update(path_nums)
+    # the paths of phases 6, 7 and 9 launch the 2-bit lane only (their
+    # reads carry no N, or none of another class than the primer's); the
+    # 4-bit lane's launches there are the warm-ups
+    kernels[0].update(path_lanes[True])
+    kernels[1].update(path_lanes[False])
     for path, rec, launches in (("host_stages", rec6, launches6),
-                                ("linked", rec7, launches7)):
+                                ("linked", rec7, launches7),
+                                ("revcomp", rec9, launches9)):
         kernels[1][path] = dict(launches=launches["pack4"],
                                 warmup_launches=rec.warmup["pack4"])
     log(f"reads_per_sec {rps}")

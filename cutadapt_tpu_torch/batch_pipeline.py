@@ -1,5 +1,5 @@
 """
-Batched single-end trimming engine on the GPU.
+Batched trimming engine on the GPU (a paired run uses one per read side).
 
 The port of ``cutadapt_tpu/batch_pipeline.py``: each read carries a
 window [win_start, win_stop) into its original bytes. Host stages
@@ -27,8 +27,13 @@ dispatch batch (``ops/align_cuda.py``). Results come back through
 pinned buffers behind CUDA events, so :func:`process_chunks_pipelined`
 overlaps chunk i's device work with chunk i+1's host work.
 
-Not ported yet, and refused with NotImplementedError: revcomp,
-adapters needing more than 16 query classes (the byte lane),
+With a :class:`RevcompStage` (--revcomp), submit dispatches the
+adapter stage twice, over the chunk and over a reverse-complemented
+copy that shares its offsets, and collect keeps for each read the
+orientation that scored higher.
+
+Not ported yet, and refused with NotImplementedError: adapters needing
+more than 16 query classes (the byte lane),
 adapter-side coordinates and windows of 2**14 bp or more (the wide
 lane), quality capping and header edits before the filters, and the
 device mesh (:func:`set_shard_mesh`). Several tasks of one stage
@@ -556,6 +561,69 @@ class AdapterStage(Stage):
         self.flat_adapters = [a for t in self.tasks for a in t.adapters]
 
 
+class RevcompStage(AdapterStage):
+    """--revcomp: try forward and reverse-complement, keep the better
+    (reference ReverseComplementer, modifiers.py:237-279). The wrapped
+    cutter's action may be trim (windows shrink) or mask/lowercase
+    (windows keep the chosen orientation's extent; the trimmed-window
+    remainder drives the transform assembler)."""
+
+    def __init__(self, tasks, times=1, modifier=None, suffix=" rc",
+                 action="trim"):
+        super().__init__(tasks, times=times, modifier=modifier,
+                         action=action)
+        self.suffix = suffix
+        # FASTA chunks alias their quality offsets to the sequence, so
+        # the rc copy must not reverse "qualities" there (the driver
+        # clears this for FASTA input)
+        self.has_quals = True
+
+
+def _complement_table() -> np.ndarray:
+    from .io.records import _COMPLEMENT_TABLE
+
+    tbl = np.arange(256, dtype=np.uint8)
+    for k, v in _COMPLEMENT_TABLE.items():
+        tbl[k] = ord(v)
+    return tbl
+
+
+def _revcomp_sequences_only(rc_buf: np.ndarray, parsed) -> None:
+    """Reverse-complement each record's sequence bytes in rc_buf,
+    leaving everything else untouched: for FASTA chunks, whose quality
+    offsets alias the sequence region."""
+    lens = parsed.seq_len.astype(np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return
+    reps = np.repeat(np.arange(len(lens)), lens)
+    offs = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+    starts = parsed.seq_start[reps]
+    src = starts + offs
+    dst = starts + (lens[reps] - 1 - offs)
+    rc_buf[dst] = _complement_table()[parsed.buf[src]]
+
+
+def reverse_complement_chunk(parsed, has_quals: bool = True):
+    """A reverse-complemented copy of a parsed chunk with the same
+    offsets: sequences complemented and reversed, qualities reversed
+    (sequences only where ``has_quals`` is false: FASTA)."""
+    from .io.chunks import ParsedChunk
+
+    rc_buf = parsed.buf.copy()
+    if has_quals:
+        native.reverse_complement_records(
+            rc_buf, parsed.seq_start, parsed.seq_len, parsed.qual_start,
+            _complement_table(),
+        )
+    else:
+        _revcomp_sequences_only(rc_buf, parsed)
+    return ParsedChunk(
+        rc_buf, parsed.head_start, parsed.head_end, parsed.seq_start,
+        parsed.seq_len, parsed.qual_start, has_cr=parsed.has_cr,
+    )
+
+
 class FilterSpec:
     """One filtering step: 'too_short', 'too_long', 'discard_trimmed',
     'discard_untrimmed', 'too_many_n', 'too_many_expected_errors',
@@ -629,6 +697,12 @@ def filter_condition(kind, threshold, chunk, win_start, win_stop,
     raise ValueError(kind)
 
 
+# filters whose predicate reads the read's bytes, not only its length
+_CONTENT_FILTERS = (
+    "too_many_n", "too_many_expected_errors", "too_high_average_error_rate",
+)
+
+
 class PendingBatch:
     __slots__ = (
         "parsed", "win_start", "win_stop", "stats", "adapter_stage",
@@ -670,10 +744,10 @@ class BatchPipelineEngine:
                 "ported yet"
             )
         for s in stages:
-            if type(s) is not AdapterStage and not isinstance(s, _HOST_STAGES):
+            if not isinstance(s, (AdapterStage,) + _HOST_STAGES):
                 raise NotImplementedError(
                     f"{type(s).__name__}: the engine runs the host stages "
-                    "and one adapter stage; revcomp is not ported yet"
+                    "and one adapter stage"
                 )
         if sum(isinstance(s, AdapterStage) for s in stages) > 1:
             raise ValueError("at most one adapter stage is supported")
@@ -785,26 +859,27 @@ class BatchPipelineEngine:
         t = torch.from_numpy(arr)
         return t.pin_memory() if self._pinned else t
 
-    def warmup(self, max_len: int) -> None:
+    def warmup(self, max_len: int, tasks=None) -> None:
         """Build the kernel library and launch every lane each kernel
         task can use once, at the smallest dispatch size (both phases of
-        a linked task; comparers and indexed tasks launch nothing)."""
+        a linked task; comparers and indexed tasks launch nothing).
+        ``tasks`` defaults to those of the engine's adapter stage."""
         width = self._bucket_length(max_len)
         lanes = (True, False) if native.AVAILABLE and _pack2_on() else (False,)
-        for stage in self.stages:
-            if not isinstance(stage, AdapterStage):
-                continue
-            for task in stage.tasks:
-                for t in task.kernel_tasks():
-                    for p2 in lanes:
-                        w_in = width // 4 if p2 else width // 2
-                        enc = self._host_tensor(
-                            np.zeros((self.min_dp_batch, w_in), np.uint8)
-                        )
-                        lens = self._host_tensor(
-                            np.zeros(self.min_dp_batch, np.int16)
-                        )
-                        t.step(enc, lens, self.device, pack2=p2).numpy()
+        if tasks is None:
+            tasks = [t for stage in self.stages
+                     if isinstance(stage, AdapterStage) for t in stage.tasks]
+        for task in tasks:
+            for t in task.kernel_tasks():
+                for p2 in lanes:
+                    w_in = width // 4 if p2 else width // 2
+                    enc = self._host_tensor(
+                        np.zeros((self.min_dp_batch, w_in), np.uint8)
+                    )
+                    lens = self._host_tensor(
+                        np.zeros(self.min_dp_batch, np.int16)
+                    )
+                    t.step(enc, lens, self.device, pack2=p2).numpy()
 
     def _encode(self, task, chunk, starts, lens, sel, rows, width,
                 pack2: Optional[bool]) -> torch.Tensor:
@@ -1108,9 +1183,11 @@ class BatchPipelineEngine:
         )
 
     def _adapter_round(self, stage, chunk, subset, win_start, win_stop,
-                       width, dispatched=None, last_gid=None):
+                       width, dispatched=None, last_gid=None,
+                       score_acc=None):
         """One matching round over `subset`. Returns (matched_mask_over_
-        subset, events) and updates windows (and last_gid) in place."""
+        subset, events) and updates windows (and last_gid, and the
+        per-read score sum score_acc) in place."""
         B = chunk.n_records
         if dispatched is None:
             dispatched = self._dispatch_stage(
@@ -1184,6 +1261,9 @@ class BatchPipelineEngine:
                 np.asarray(stage.gid_base, np.int32)[best_task[idx]]
                 + best_sub[idx]
             )
+        if score_acc is not None:
+            idx = np.flatnonzero(best_found)
+            score_acc[idx] += best_score[idx]
         events = []
         for t_i, task in enumerate(stage.tasks):
             hit = np.flatnonzero(best_found & (best_task == t_i))
@@ -1336,23 +1416,40 @@ class BatchPipelineEngine:
             stage = self.stages[pos]
             if B > 0:
                 width = self._bucket_length(int((win_stop - win_start).max()))
-                dp_futures = self._dispatch_stage(
-                    stage, parsed, np.arange(B), win_start, win_stop, width
+                subset = np.arange(B)
+                fwd_disp = self._dispatch_stage(
+                    stage, parsed, subset, win_start, win_stop, width
                 )
+                dp_futures = fwd_disp
+                if isinstance(stage, RevcompStage):
+                    # the reverse-complemented copy shares every offset,
+                    # so the same tasks match the rc reads; both
+                    # orientations launch here, ahead of the next
+                    # chunk's host work
+                    rc_chunk = reverse_complement_chunk(
+                        parsed, stage.has_quals
+                    )
+                    full = parsed.seq_len.astype(np.int32)
+                    rc_ws = full - win_stop
+                    rc_we = full - win_start
+                    rc_disp = self._dispatch_stage(
+                        stage, rc_chunk, subset, rc_ws, rc_we, width
+                    )
+                    dp_futures = (rc_chunk, rc_ws, rc_we, fwd_disp, rc_disp)
         return PendingBatch(
             parsed, win_start, win_stop, stats, stage, self.stages[pos + 1 :],
             dp_futures, width,
         )
 
     def _run_rounds(self, stage, chunk, win_start, win_stop, width,
-                    dispatched, last_gid):
-        """Run all `times` matching rounds; mutates windows/last_gid in
-        place; returns (matched_any mask, events)."""
+                    dispatched, last_gid, score_acc=None):
+        """Run all `times` matching rounds; mutates windows/last_gid/
+        score_acc in place; returns (matched_any mask, events)."""
         B = chunk.n_records
         subset = np.arange(B)
         matched, events_all = self._adapter_round(
             stage, chunk, subset, win_start, win_stop, width,
-            dispatched=dispatched, last_gid=last_gid,
+            dispatched=dispatched, last_gid=last_gid, score_acc=score_acc,
         )
         matched_any = np.zeros(B, bool)
         matched_any[subset[matched]] = True
@@ -1362,11 +1459,74 @@ class BatchPipelineEngine:
                 break
             matched, events = self._adapter_round(
                 stage, chunk, active, win_start, win_stop, width,
-                last_gid=last_gid,
+                last_gid=last_gid, score_acc=score_acc,
             )
             events_all.extend(events)
             active = active[matched]
         return matched_any, events_all
+
+    def _run_revcomp(self, stage, pending, win_start, win_stop, last_gid,
+                     stats):
+        """--revcomp: match the forward read and its reverse complement
+        with full rounds each, keep whichever direction scored higher
+        (strictly, like ReverseComplementer, modifiers.py:237-279).
+        Events carry ev['rc']; stats gain is_rc/rc_chunk for assembly."""
+        chunk = pending.parsed
+        B = chunk.n_records
+        rc_chunk, rc_ws, rc_we, fwd_disp, rc_disp = pending.dp_futures
+        ws_f, we_f = win_start.copy(), win_stop.copy()
+        # mask/lowercase/--no-trim keep the chosen orientation's input
+        # extent; for the transforms the trimmed windows become the
+        # transform remainder
+        keep_windows = stage.action in (None, "mask", "lowercase")
+        if keep_windows:
+            rc_ws0, rc_we0 = rc_ws.copy(), rc_we.copy()
+        score_f = np.zeros(B, np.int32)
+        gid_f = np.full(B, -1, np.int32)
+        matched_f, events_f = self._run_rounds(
+            stage, chunk, ws_f, we_f, pending.width, fwd_disp,
+            gid_f, score_f,
+        )
+        score_r = np.zeros(B, np.int32)
+        gid_r = np.full(B, -1, np.int32)
+        matched_r, events_r = self._run_rounds(
+            stage, rc_chunk, rc_ws, rc_we, pending.width, rc_disp,
+            gid_r, score_r,
+        )
+        use_rc = score_r > score_f
+        matched_any = np.where(use_rc, matched_r, matched_f)
+        if keep_windows:
+            if stage.action is not None:
+                stats["remainder"] = (
+                    np.where(use_rc, rc_ws, ws_f),
+                    np.where(use_rc, rc_we, we_f),
+                )
+                stats["transform_action"] = stage.action
+            # win_start/win_stop are the unmutated forward extents
+            pending.win_start[:] = np.where(use_rc, rc_ws0, win_start)
+            pending.win_stop[:] = np.where(use_rc, rc_we0, win_stop)
+        else:
+            pending.win_start[:] = np.where(use_rc, rc_ws, ws_f)
+            pending.win_stop[:] = np.where(use_rc, rc_we, we_f)
+        last_gid[:] = np.where(use_rc, gid_r, gid_f)
+        events = []
+        for evs, mask, rc in ((events_f, ~use_rc, False),
+                              (events_r, use_rc, True)):
+            for ev in evs:
+                sel = mask[ev["reads"]]
+                if not sel.any():
+                    continue
+                # every per-hit field (geometry, linked-phase suffixes)
+                # is valid in the chosen orientation's chunk
+                out = {"task": ev["task"], "rc": rc}
+                for k, v in ev.items():
+                    if k != "task":
+                        out[k] = v[sel] if isinstance(v, np.ndarray) else v
+                events.append(out)
+        stats["is_rc"] = use_rc
+        stats["rc_chunk"] = rc_chunk
+        stats["revcomped"] = int((use_rc & matched_any).sum())
+        return matched_any, events
 
     def collect(self, pending: PendingBatch):
         """Finish a chunk: fetch the DP results (a linked task's 3'
@@ -1380,7 +1540,14 @@ class BatchPipelineEngine:
         matched_any = np.zeros(B, bool)
         last_gid = np.full(B, -1, np.int32)
         stage = pending.adapter_stage
-        if stage is not None and B > 0:
+        if isinstance(stage, RevcompStage) and B > 0:
+            matched_any, events_all = self._run_revcomp(
+                stage, pending, win_start, win_stop, last_gid, stats
+            )
+            win_start, win_stop = pending.win_start, pending.win_stop
+            stats["adapter_events"] = events_all
+            stats["with_adapters"] = int(matched_any.sum())
+        elif stage is not None and B > 0:
             keep_windows = stage.action in (None, "mask", "lowercase")
             if keep_windows:
                 # match-only / byte-rewriting modes: rounds still trim
@@ -1418,11 +1585,22 @@ class BatchPipelineEngine:
             stats["remainder"]
             if stats.get("transform_action") == "mask" else None
         )
+        # content-reading predicates must see the chosen orientation's
+        # bytes under --revcomp: evaluate on both chunks, select per
+        # read (the rc copy shares all offsets, so the same windows
+        # apply)
+        is_rc = stats.get("is_rc")
         for f in self.filters:
             drop = filter_condition(
                 f.kind, f.threshold, chunk, win_start, win_stop, lengths,
                 matched_any, mask_remainder=mask_remainder,
             )
+            if is_rc is not None and f.kind in _CONTENT_FILTERS:
+                drop = np.where(is_rc, filter_condition(
+                    f.kind, f.threshold, stats["rc_chunk"], win_start,
+                    win_stop, lengths, matched_any,
+                    mask_remainder=mask_remainder,
+                ), drop)
             newly = drop & keep
             filter_counts.append(int(newly.sum()))
             filter_dropped.append(newly)

@@ -259,7 +259,8 @@ REFUSED_OPTIONS = [
     (["--rename", "{{id}}_x"], "modifier Renamer"),
     (["--zero-cap"], "modifier ZeroCapper"),
     (["-x", "pre_"], "modifier PrefixSuffixAdder"),
-    (["--revcomp"], "modifier ReverseComplementer"),
+    (["--revcomp", "--poly-a"],
+     "a host stage after the --revcomp stage has no engine form"),
     (["-a", "ACGTACGT;anywhere"], "'anywhere' search parameter"),
     (["--action=mask", "--poly-a"], "after a mask/lowercase adapter stage"),
     (["-a", "^TTAGACATAT...GGGGGG", "--action=crop"],
@@ -302,14 +303,16 @@ def test_refused_options_fail_in_require_mode_and_run_on_host(
 
 
 def test_paired_end_is_refused(port_env, tmp_path, caplog):
+    """Paired-end runs ride the engine (tests/test_torch_paired.py), but
+    paired demultiplexing is refused yet, with its reason."""
     port_env.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
     data = golden_args([], "", "paired.1.fastq")[-1]
     with pytest.raises(SystemExit) as e:
-        cli.main(["-a", "TTAGACATAT", "-o", str(tmp_path / "1.fastq"),
-                  "-p", str(tmp_path / "2.fastq"), data,
+        cli.main(["-a", "TTAGACATAT", "-o", str(tmp_path / "{name}.1.fastq"),
+                  "-p", str(tmp_path / "{name}.2.fastq"), data,
                   data.replace("paired.1", "paired.2")])
     assert e.value.code == 1
-    assert "paired-end pipelines are not ported" in caplog.text
+    assert "demultiplexing (PairedDemultiplexer) is not ported" in caplog.text
 
 
 def test_quality_trimming_of_fasta_is_refused(port_env, tmp_path, caplog):

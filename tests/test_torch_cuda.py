@@ -274,3 +274,241 @@ def test_cli_golden_on_card(card, monkeypatch, tmp_path, case):
         assert data_launches == 0
     else:
         assert data_launches > 0
+
+
+PAIRED_GOLDEN = fx.paired_golden_cases()
+# the paired revcomp cases of tests/test_paired.py and the single-end
+# one of tests/test_commandline.py: (params, in1, in2 or None, outputs)
+REVCOMP_GOLDEN = {
+    "paired_r1_and_r2": (
+        "--revcomp -g ^TTATTTGTCT -G ^TCCGCACTGGC", "revcomp.1.fastq",
+        "revcomp.2.fastq", ("revcomp-r1r2.1.fastq", "revcomp-r1r2.2.fastq")),
+    "paired_only_r1": (
+        "--revcomp -g ^TTATTTGTCT -g ^TCCGCACTGGC", "revcomp.1.fastq",
+        "revcomp.2.fastq", ("revcomp.1.fastq", "revcomp.2.fastq")),
+    "single_normalized": (
+        "--revcomp --no-index -g ^TTATTTGTCT -g ^TCCGCACTGG",
+        "revcomp.1.fastq", None, ("revcomp-single-normalize.fastq",)),
+}
+
+
+def _card_main(monkeypatch, args):
+    """The port's main on the card in require mode: no fallback, no run
+    of the plain version; returns the launch counters."""
+    from cutadapt_tpu_torch import accel, cli
+
+    for name in ("CUTADAPT_TPU_TORCH_DEVICE", "CUTADAPT_TPU_TORCH_CHUNK_BYTES"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
+    fallbacks = accel.FALLBACK_COUNT
+    align_cuda.reset_launch_counters()
+    cli.main([str(a) for a in args])
+    assert accel.FALLBACK_COUNT == fallbacks
+    assert align_cuda.PLAIN_RUNS == {"pack2": 0, "pack4": 0}
+    return dict(align_cuda.LAUNCHES)
+
+
+def _same_file(path, expected):
+    with open(path, "rb") as got, open(fx.golden_path(expected), "rb") as want:
+        assert got.read() == want.read(), expected
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", PAIRED_GOLDEN, ids=[c[0] for c in PAIRED_GOLDEN],
+)
+def test_paired_golden_on_card(card, monkeypatch, tmp_path, case):
+    """Each paired golden case through the port's main on the card in
+    require mode: both outputs byte-identical to tests/cut/."""
+    _, params, in1, in2, expected1, expected2 = case
+    (tmp_path / "r1").mkdir()
+    (tmp_path / "r2").mkdir()
+    out1, out2 = tmp_path / "r1" / expected1, tmp_path / "r2" / expected2
+    _card_main(monkeypatch,
+               fx.paired_golden_args(params, out1, out2, in1, in2))
+    _same_file(out1, expected1)
+    _same_file(out2, expected2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(REVCOMP_GOLDEN))
+def test_revcomp_golden_on_card(card, monkeypatch, tmp_path, name):
+    params, in1, in2, expected = REVCOMP_GOLDEN[name]
+    outs = [tmp_path / f"{i}-{e}" for i, e in enumerate(expected)]
+    if in2 is None:
+        args = fx.golden_args(params, str(outs[0]), in1)
+    else:
+        args = fx.paired_golden_args(params, outs[0], outs[1], in1, in2)
+    _card_main(monkeypatch, args)
+    for out, exp in zip(outs, expected):
+        _same_file(out, exp)
+
+
+class _Spy:
+    """Records the inputs of every kernel launch (CUDA tensors only) and
+    the orientation of the dispatch it came from."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        self.rc = False
+        real = tbp.locate_packed
+
+        def spy(enc, lens, tables, pack2):
+            self.calls.append((self.rc, enc.device.type, enc.clone(),
+                               lens.clone(), tables, pack2))
+            return real(enc, lens, tables, pack2)
+
+        monkeypatch.setattr(tbp, "locate_packed", spy)
+
+    def held_to_plain(self):
+        """Every recorded launch on the card equals the plain version on
+        the same CUDA tensors; returns the launch shapes."""
+        shapes = set()
+        for _, dev, enc, lens, tables, pack2 in self.calls:
+            if dev != "cuda":
+                continue  # the CPU twin of a _card_and_cpu run
+            got = align_cuda.locate_packed(enc, lens, tables, pack2)
+            plain = align_cuda.locate_reference(enc, lens, tables, pack2)
+            assert fx.first_difference(
+                align_cuda.unpack_result(got.cpu().numpy()),
+                align_cuda.unpack_result(plain.cpu().numpy()),
+            ) is None
+            shapes.add((pack2, tuple(enc.shape)))
+        return shapes
+
+
+def _pair_chunks(n, seed):
+    from cutadapt_tpu_torch.io.chunks import parse_fastq_chunk
+
+    # a fifth of the reads with N, so that both kernel lanes launch
+    return tuple(parse_fastq_chunk(fx.add_ns(r, 0.2, seed=seed + i))
+                 for i, r in enumerate(fx.make_pairs(n, seed)))
+
+
+def _card_and_cpu(fn):
+    """fn(device) on the card and on the CPU: the card's result, after
+    checking that both are equal."""
+    got = {dev: fn(dev) for dev in ("cuda", "cpu")}
+    fx.assert_same(got["cuda"], got["cpu"])
+    return got["cuda"]
+
+
+@pytest.mark.cuda
+def test_pair_match_on_card(card, monkeypatch):
+    """One --pair-adapters batch (two adapter pairs) on the card: the
+    same windows, matched mask and winning pair as on the CPU; every
+    launch shape held to the plain version."""
+    from cutadapt_tpu_torch import accel, parser
+    from cutadapt_tpu_torch.modifiers import PairedAdapterCutter
+
+    search = dict(max_errors=0.1, min_overlap=3, read_wildcards=False,
+                  adapter_wildcards=True, indels=True)
+    spy = _Spy(monkeypatch)
+
+    def run(device):
+        chunks = _pair_chunks(3000, 21)
+        ads = [parser.make_adapters_from_specifications(
+            [("back", a), ("back", a[:20])], search)
+            for a in (fx.TRUSEQ_R1, fx.TRUSEQ_R2)]
+        mod = PairedAdapterCutter(*ads)
+        tasks = [[tbp.AdapterTask(a, tbp.adapter_kind(a), i)
+                  for i, a in enumerate(side)] for side in ads]
+        engines = [tbp.BatchPipelineEngine([], device=device, min_dp_batch=256,
+                                           max_dp_batch=1024)
+                   for _ in (1, 2)]
+        windows = [(np.zeros(c.n_records, np.int32),
+                    c.seq_len.astype(np.int32)) for c in chunks]
+        stats = ({}, {})
+        with torch.cuda.device(0):
+            matched = accel._pair_match(engines, chunks, windows,
+                                        (tasks[0], tasks[1], mod),
+                                        stats_pair=stats)
+        return dict(matched=matched, windows=windows,
+                    gid=stats[0]["last_adapter_gid"],
+                    with_adapters=mod.with_adapters)
+
+    got = _card_and_cpu(run)
+    assert got["with_adapters"] > 500
+    shapes = spy.held_to_plain()
+    assert {p2 for p2, _ in shapes} == {True, False}
+
+
+@pytest.mark.cuda
+def test_run_rc_pair_on_card(card, monkeypatch):
+    """One paired --revcomp batch on the card (a third of the pairs with
+    R1 and R2 exchanged): the same slot windows, matched masks and
+    winning orientation as on the CPU; every launch shape held to the
+    plain version."""
+    from cutadapt_tpu_torch import accel
+    from cutadapt_tpu_torch.io.chunks import ParsedChunk
+    from cutadapt_tpu_torch.modifiers import PairedReverseComplementer
+
+    spy = _Spy(monkeypatch)
+
+    def swapped(chunks, share, seed):
+        c1, c2 = chunks
+        swap = np.random.RandomState(seed).rand(c1.n_records) < share
+        buf = np.concatenate([c1.buf, c2.buf])
+        off = len(c1.buf)
+        pick = [np.where(swap, b + off, a) for a, b in (
+            (c1.seq_start, c2.seq_start), (c1.qual_start, c2.qual_start))]
+        back = [np.where(swap, a, b + off) for a, b in (
+            (c1.seq_start, c2.seq_start), (c1.qual_start, c2.qual_start))]
+        return (ParsedChunk(buf, c1.head_start, c1.head_end, pick[0],
+                            c1.seq_len, pick[1]),
+                ParsedChunk(buf, c2.head_start + off, c2.head_end + off,
+                            back[0], c2.seq_len, back[1]))
+
+    def run(device):
+        chunks = swapped(_pair_chunks(3000, 22), 1 / 3, 23)
+        st1 = fx.cutter_stage(fx.PORT_MODULES, [("back", fx.TRUSEQ_R1)])[0]
+        st2 = fx.cutter_stage(fx.PORT_MODULES, [("back", fx.TRUSEQ_R2)])[0]
+        mod = PairedReverseComplementer(st1.modifier, st2.modifier)
+        engines = [tbp.BatchPipelineEngine([], device=device, min_dp_batch=256,
+                                           max_dp_batch=1024)
+                   for _ in (1, 2)]
+        windows = [(np.zeros(c.n_records, np.int32),
+                    c.seq_len.astype(np.int32)) for c in chunks]
+        with torch.cuda.device(0):
+            res = accel._run_rc_pair(engines, (st1, st2, mod), chunks,
+                                     windows)
+        return dict(windows=list(res[2:6]), matched=list(res[6:8]),
+                    gids=list(res[8:10]), rc=mod.reverse_complemented)
+
+    got = _card_and_cpu(run)
+    # a swapped pair is told apart where an adapter is read (a third)
+    assert 200 < got["rc"] < 450
+    assert spy.held_to_plain()
+
+
+@pytest.mark.cuda
+def test_revcomp_dispatch_reaches_kernel_on_card(card, monkeypatch):
+    """Under --revcomp the rc copy's dispatch launches the kernel on CUDA
+    tensors, as the forward one does, both from submit."""
+    from cutadapt_tpu_torch.io.chunks import parse_fastq_chunk
+
+    spy = _Spy(monkeypatch)
+    stage, tasks = fx.cutter_stage(fx.PORT_MODULES,
+                                   [("front", "^" + fx.PRIMER_515F)])
+    engine = tbp.BatchPipelineEngine(
+        [tbp.RevcompStage(tasks, modifier=stage.modifier)], device="cuda",
+        min_dp_batch=256, max_dp_batch=1024,
+    )
+    chunk = parse_fastq_chunk(fx.make_amplicons(2000, seed=24, rc_share=0.5))
+    real = engine._dispatch_stage
+
+    def tagged(stage, c, *args):
+        spy.rc = c is not chunk
+        return real(stage, c, *args)
+
+    engine._dispatch_stage = tagged
+    align_cuda.reset_launch_counters()
+    pending = engine.submit(chunk)
+    in_submit = len(spy.calls)
+    _, _, _, stats = engine.collect(pending)
+    assert len(spy.calls) == in_submit
+    assert {(rc, dev) for rc, dev, *_ in spy.calls} == {
+        (False, "cuda"), (True, "cuda")}
+    assert align_cuda.PLAIN_RUNS == {"pack2": 0, "pack4": 0}
+    assert 700 < int(stats["is_rc"].sum()) < 1300
+    spy.held_to_plain()

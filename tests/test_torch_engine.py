@@ -151,11 +151,6 @@ def test_unported_paths_raise():
     tbp.set_shard_mesh(None)
     with pytest.raises(NotImplementedError, match="mesh"):
         tbp.set_shard_mesh(object())
-    class RevcompStage(tbp.AdapterStage):
-        pass
-
-    with pytest.raises(NotImplementedError, match="revcomp"):
-        tbp.BatchPipelineEngine([RevcompStage([task])], device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         tbp.AdapterTask(adapter, "unknown", 0)
     long_read = b"@r\n" + b"A" * (1 << 14) + b"\n+\n" + b"I" * (1 << 14) + b"\n"

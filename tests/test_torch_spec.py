@@ -172,3 +172,32 @@ def test_port_cli_help_imports_nothing_of_jax():
     ) + LEAK_CHECK
     r = _fresh_python("-c", code)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_paired_revcomp_run_imports_nothing_of_jax(tmp_path):
+    """A paired --revcomp run and a single-end --revcomp run through the
+    engine (require mode, the plain aligner on the CPU) in a fresh
+    interpreter load neither jax nor any cutadapt_tpu module."""
+    data = os.path.join(REPO, "tests", "data")
+    runs = [
+        ["--revcomp", "-g", "^TTATTTGTCT", "-G", "^TCCGCACTGGC",
+         "-o", str(tmp_path / "1.fastq"), "-p", str(tmp_path / "2.fastq"),
+         os.path.join(data, "revcomp.1.fastq"),
+         os.path.join(data, "revcomp.2.fastq")],
+        ["--revcomp", "-g", "^TTATTTGTCT", "-o", str(tmp_path / "s.fastq"),
+         os.path.join(data, "revcomp.1.fastq")],
+    ]
+    # one torch thread: the plain aligner's many small ops wait at a
+    # thread pool's barriers where test processes share the cores
+    code = (
+        "import os, sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "os.environ.update(CUTADAPT_TPU_TORCH_DEVICE='cpu',\n"
+        "                  CUTADAPT_TPU_TORCH_BATCH='require')\n"
+        "from cutadapt_tpu_torch import accel, cli\n"
+        f"for args in {runs!r}:\n"
+        "    cli.main(args)\n"
+        "assert accel.FALLBACK_COUNT == 0\n"
+    ) + LEAK_CHECK
+    r = _fresh_python("-c", code)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -20,7 +20,15 @@ The flagship workload is single-end 3' trimming of the TruSeq adapter
 The golden cases of the CLI: :func:`golden_cases` reads the JAX package's
 list of single-end golden cases without importing its test module,
 :data:`ENGINE_NOT_YET` names the cases the port's engine refuses yet, and
-:data:`NO_ALIGNER_RUN` those it accepts but gives the aligner no work.
+:data:`NO_ALIGNER_RUN` those it accepts but gives the aligner no work;
+:func:`paired_golden_cases` and :data:`ENGINE_NOT_YET_PAIRED` do the same
+for the paired-end cases, and :func:`accel_configs` reads the CLI
+configurations of ``tests/test_accel.py`` (:func:`accel_reads` copies
+its reads).
+
+Paired and revcomp workloads: :func:`make_pairs` makes Illumina TruSeq
+read pairs, :func:`make_amplicons` with ``rc_share`` amplicons of either
+orientation.
 
 The parity matrix holds the batched aligner to other forms of the same
 contract: 13 adapter specs spanning the adapter kinds and flag sets, and
@@ -164,11 +172,12 @@ def _draw_primer(rng: np.random.RandomState, primer: str, n: int):
 
 
 def fastq_records(seqs: np.ndarray, seq_len: np.ndarray,
-                  quals: np.ndarray) -> bytes:
-    """FASTQ records ``@r<i>`` from row-padded (n, W) sequence and
-    quality bytes, read i holding the first seq_len[i] of its row."""
+                  quals: np.ndarray, mate: str = "") -> bytes:
+    """FASTQ records ``@r<i>`` (``@r<i>/1`` with ``mate="/1"``) from
+    row-padded (n, W) sequence and quality bytes, read i holding the
+    first seq_len[i] of its row."""
     n = len(seq_len)
-    names = [f"@r{i}\n".encode() for i in range(n)]
+    names = [f"@r{i}{mate}\n".encode() for i in range(n)]
     name_lens = np.array([len(x) for x in names], np.int64)
     lens = seq_len.astype(np.int64)
     rec_lens = name_lens + 2 * lens + 4
@@ -194,11 +203,34 @@ def _ragged_offsets(lens: np.ndarray) -> np.ndarray:
     return np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
 
 
-def make_amplicons(n_reads: int, seed: int = 515) -> bytes:
+_COMPLEMENT = np.arange(256, dtype=np.uint8)
+_COMPLEMENT[np.frombuffer(b"ACGTN", np.uint8)] = np.frombuffer(b"TGCAN",
+                                                               np.uint8)
+
+
+def _reverse_rows(rows: np.ndarray, lens: np.ndarray, which: np.ndarray,
+                  table: Optional[np.ndarray] = None) -> np.ndarray:
+    """rows with the first lens[i] bytes of each row i in ``which``
+    reversed (and mapped through ``table``)."""
+    out = rows.copy()
+    j = np.arange(rows.shape[1])[None, :]
+    src = np.where(j < lens[:, None], lens[:, None] - 1 - j, j)
+    flipped = np.take_along_axis(rows, src, axis=1)
+    if table is not None:
+        flipped = np.where(j < lens[:, None], table[flipped], flipped)
+    out[which] = flipped[which]
+    return out
+
+
+def make_amplicons(n_reads: int, seed: int = 515,
+                   rc_share: float = 0.0) -> bytes:
     """Synthetic merged 16S V4 amplicon reads: the 515F primer (IUPAC
     positions drawn per read; missing from 5% of the reads), a 240-260 bp
     random insert, the reverse complement of 806R, then a substitution at
-    1% of the bases; 260-299 bp per read, phred 20-40."""
+    1% of the bases; 260-299 bp per read, phred 20-40. A seeded
+    ``rc_share`` of the reads is then reverse-complemented (qualities
+    reversed), as reads of unknown orientation are; its draw comes after
+    every other, so the other reads' bytes do not depend on it."""
     rng = np.random.RandomState(seed)
     n = n_reads
     fwd = _draw_primer(rng, PRIMER_515F, n)
@@ -222,7 +254,61 @@ def make_amplicons(n_reads: int, seed: int = 515) -> bytes:
     shifted = (code_of[seqs] + rng.randint(1, 4, (n, width))) % 4
     seqs = np.where(sub, bases[shifted], seqs)
     quals = rng.randint(33 + 20, 33 + 41, (n, width)).astype(np.uint8)
+    flip = rng.rand(n) < rc_share
+    if flip.any():
+        seqs = _reverse_rows(seqs, seq_len, flip, _COMPLEMENT)
+        quals = _reverse_rows(quals, seq_len, flip)
     return fastq_records(seqs, seq_len, quals)
+
+
+# TruSeq read 1 and read 2 adapters (cutadapt user guide, "Illumina
+# TruSeq"; "Trimming paired-end reads")
+TRUSEQ_R1 = ADAPTER
+TRUSEQ_R2 = "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"
+PAIR_READ_LEN = 150
+
+
+def make_pairs(n_pairs: int, seed: int = 150) -> tuple:
+    """Synthetic 2 x 150 bp Illumina TruSeq read pairs (FASTQ bytes of R1
+    and of R2, names ``r<i>/1`` and ``r<i>/2``): a random insert of
+    60-149 bp in a third of the pairs and 150-500 bp in the rest; R1 reads
+    the insert, R2 its reverse complement, each followed by its adapter
+    (TRUSEQ_R1, TRUSEQ_R2) and random bases, so that a third of the pairs
+    read through into the adapter on both mates at the insert length.
+    Then a substitution at 1% of the bases and 1-3 N in 2% of each
+    mate's reads; phred about 37 falling to about 10 toward the 3' end."""
+    rng = np.random.RandomState(seed)
+    n, L = n_pairs, PAIR_READ_LEN
+    short = rng.rand(n) < 1 / 3
+    insert = np.where(short, rng.randint(60, L, n), rng.randint(L, 501, n))
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    width = 500 + L
+    frag = bases[rng.randint(0, 4, (n, width))]
+    mates = []
+    for mate, adapter in ((1, TRUSEQ_R1), (2, TRUSEQ_R2)):
+        # the mate's view of the fragment: R2 reads the reverse complement
+        seq = frag if mate == 1 else _reverse_rows(
+            frag, insert, np.ones(n, bool), _COMPLEMENT)
+        tail = bases[rng.randint(0, 4, (n, L))]
+        ad = np.frombuffer(adapter.encode(), np.uint8)
+        tail[:, : len(ad)] = ad
+        col = np.arange(L)[None, :]
+        read = np.where(col < insert[:, None], seq[:, :L],
+                        tail[np.arange(n)[:, None],
+                             np.clip(col - insert[:, None], 0, L - 1)])
+        sub = rng.rand(n, L) < 0.01
+        read = np.where(sub, bases[rng.randint(0, 4, (n, L))], read)
+        dirty = np.flatnonzero(rng.rand(n) < 0.02)
+        for k in range(3):
+            rows = dirty[(rng.rand(len(dirty)) < 0.5) | (k == 0)]
+            read[rows, rng.randint(0, L, len(rows))] = ord("N")
+        decay = 27 * (np.arange(L) / (L - 1)) ** 3
+        phred = np.clip(np.rint(37 - decay[None, :]
+                                + rng.normal(0, 3, (n, L))), 2, 41)
+        quals = (33 + phred).astype(np.uint8)
+        mates.append(fastq_records(read.astype(np.uint8), np.full(n, L),
+                                   quals, mate=f"/{mate}"))
+    return tuple(mates)
 
 
 def add_ns(data: bytes, fraction: float, seed: int = 5) -> bytes:
@@ -331,7 +417,9 @@ def cutter_stage(pkg, specs, action="trim", times=1, **params):
     cutter = pkg_modifiers.AdapterCutter(adapters, times=times, action=action)
     tasks = pkg_accel._translate_tasks(cutter)
     assert tasks is not None
-    return pkg_bp.AdapterStage(tasks, times=times, action=action), tasks
+    stage = pkg_bp.AdapterStage(tasks, times=times, action=action,
+                                modifier=cutter)
+    return stage, tasks
 
 
 # --- the golden cases of the CLI ---------------------------------------------
@@ -344,6 +432,17 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 ENGINE_NOT_YET = {
     "length_tag": "modifier LengthTagModifier",
     "strip_suffix": "modifier SuffixRemover",
+}
+# Paired golden cases (tests/test_paired.py) the port's engine refuses
+# yet, each with the reason its translation gives
+ENGINE_NOT_YET_PAIRED = {
+    "paired_demultiplex": "demultiplexing (PairedDemultiplexer)",
+    "pair_adapters_demultiplexing": "demultiplexing (PairedDemultiplexer)",
+    "combinatorial_demultiplexing":
+        "demultiplexing (CombinatorialDemultiplexer)",
+    "rename": "modifier PairedEndRenamer",
+    "pe_name_edits": "modifier PrefixSuffixAdder",
+    "strip_suffix_length_tag": "modifier LengthTagModifier",
 }
 # Accepted cases in which the aligner has nothing to do
 NO_ALIGNER_RUN = {
@@ -370,27 +469,92 @@ NO_ALIGNER_RUN = {
 }
 
 
-def golden_cases():
-    """The (id, params, expected, input) tuples of
-    ``tests/test_commandline.py:GOLDEN_CASES``, read with
-    ``ast.literal_eval`` on that one assignment, without importing the
-    module (which imports the JAX package)."""
-    path = os.path.join(TESTS, "test_commandline.py")
+def _assignment(module: str, name: str):
+    """The value node of ``name = ...`` in a test module of this
+    directory, read without importing the module (which imports the JAX
+    package)."""
+    path = os.path.join(TESTS, module)
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), path)
     for node in tree.body:
         if isinstance(node, ast.Assign) and any(
-            isinstance(t, ast.Name) and t.id == "GOLDEN_CASES"
-            for t in node.targets
+            isinstance(t, ast.Name) and t.id == name for t in node.targets
         ):
-            return ast.literal_eval(node.value)
-    raise LookupError(f"no GOLDEN_CASES assignment in {path}")
+            return node.value
+    raise LookupError(f"no {name} assignment in {path}")
+
+
+def golden_cases():
+    """The (id, params, expected, input) tuples of
+    ``tests/test_commandline.py:GOLDEN_CASES`` (``ast.literal_eval``)."""
+    return ast.literal_eval(_assignment("test_commandline.py",
+                                        "GOLDEN_CASES"))
+
+
+def paired_golden_cases():
+    """The (id, params, in1, in2, expected1, expected2) tuples of
+    ``tests/test_paired.py:PAIRED_GOLDEN_CASES``."""
+    return ast.literal_eval(_assignment("test_paired.py",
+                                        "PAIRED_GOLDEN_CASES"))
+
+
+def accel_configs() -> dict:
+    """``tests/test_accel.py:CONFIGS`` as {id: (args, paired)}: the list
+    is evaluated with only its adapter constants A3 and A5 in scope."""
+    names = {k: ast.literal_eval(_assignment("test_accel.py", k))
+             for k in ("A3", "A5")}
+    node = ast.Expression(_assignment("test_accel.py", "CONFIGS"))
+    configs = eval(compile(node, "test_accel.py", "eval"),
+                   {"__builtins__": {}}, names)
+    return {name: (args, paired) for name, args, paired in configs}
+
+
+def accel_reads(path, n=800, seed=1, paired=False):
+    """A copy of ``tests/test_accel.py:make_reads`` (single-end or two
+    files): reads of 20-90 random bases, half of them with the adapter
+    A3 (R1) or A5 (R2) spliced in. Returns the input paths."""
+    import random
+
+    names = {k: ast.literal_eval(_assignment("test_accel.py", k))
+             for k in ("A3", "A5")}
+    rng = random.Random(seed)
+
+    def rec(i, tag, adapter):
+        L = rng.randint(20, 90)
+        s = "".join(rng.choice("ACGT") for _ in range(L))
+        if rng.random() < 0.5 and L > 25:
+            p = rng.randint(5, L - 10)
+            s = (s[:p] + adapter + s[p:])[:L]
+        q = "".join(chr(rng.randint(35, 72)) for _ in s)
+        return f"@x{i}{tag}\n{s}\n+\n{q}\n"
+
+    if paired:
+        p2 = str(path) + ".2"
+        with open(path, "w") as f1, open(p2, "w") as f2:
+            for i in range(n):
+                f1.write(rec(i, "/1", names["A3"]))
+                f2.write(rec(i, "/2", names["A5"]))
+        return [path, p2]
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(rec(i, "", names["A3"]))
+    return [path]
 
 
 def golden_args(params, out: str, inpath: str) -> List[str]:
     """The command line of one golden case writing to ``out``."""
     params = params.split() if isinstance(params, str) else list(params)
     return params + ["-o", out, os.path.join(TESTS, "data", inpath)]
+
+
+def paired_golden_args(params, out1: str, out2: str, in1: str,
+                       in2: str) -> List[str]:
+    """The command line of one paired golden case (tests/conftest.py's
+    run_paired) writing to ``out1`` and ``out2``."""
+    params = params.split() if isinstance(params, str) else list(params)
+    return params + ["--buffer-size=512", "-o", out1, "-p", out2,
+                     os.path.join(TESTS, "data", in1),
+                     os.path.join(TESTS, "data", in2)]
 
 
 def golden_path(expected: str) -> str:
