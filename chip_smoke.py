@@ -16,9 +16,13 @@ Phases, each of which must pass:
    adapters and a 300 bp one (rows in shared memory) at 1024 reads x
    512 bp; and on a 4,000 bp one (rows in device scratch) at 64 reads x
    512 bp. Every instantiation of the kernel in the library must have run
-   here. Results are integers: `found` must agree everywhere, query
-   start/stop, errors and score wherever a match was found (tolerance:
-   exact);
+   here. Then the wide result (the (7, B) store of windows of 2**14 bp
+   or more and of adapter-side coordinates) in both lanes, on one spec of
+   each layout mode (registers, shared memory, device scratch) and on
+   256 reads of 16,400-20,000 bp with the flagship adapter, against the
+   plain version on all 7 fields. Results are integers: `found` must
+   agree everywhere, query start/stop, errors and score (and ref
+   start/stop) wherever a match was found (tolerance: exact);
 3. main path: flagship single-end 3' trimming of the TruSeq adapter,
    524,288 reads of 100 bp in 4 chunks of 131,072 through
    BatchPipelineEngine and process_chunks_pipelined on the card; output
@@ -37,11 +41,11 @@ Phases, each of which must pass:
    built); one counted run of the flagship file and one of phase 4's
    dirty file through main, each lane's launches there (the engine's
    warm-up apart) with its time, bound and parity against the plain
-   version at every shape the CLI launched; then every golden case the
-   engine accepts (tests/torch_fixtures.py), single-end and paired,
-   through main on the card, byte-identical to tests/cut/;
+   version at every shape the CLI launched; then every golden case
+   (tests/torch_fixtures.py: the engine refuses none), single-end and
+   paired, through main on the card, byte-identical to tests/cut/;
 6. host stages: the repo's configuration -q 20 -a ADAPTER --poly-a -m 10
-   (bench_configs.py:132-135) on 524,288 reads of 40-100 bp (30% with
+   (bench_configs.py:132-135) on 262,144 reads of 40-100 bp (30% with
    the adapter, 30% with an A tail, phred 2-40) through main under
    require, held to the port's per-read host path
    (CUTADAPT_TPU_TORCH_BATCH=0): the output file byte for byte, and the
@@ -51,14 +55,14 @@ Phases, each of which must pass:
    timed, bounded and held to the plain version;
 7. linked primers: the amplicon trimming of cutadapt's user guide,
    -a ^GTGYCAGCMGCCGCGGTAA...ATTAGAWACCCBNGTAGTCC --discard-untrimmed
-   (the 16S V4 primers 515F and 806R), on 262,144 synthetic amplicon
+   (the 16S V4 primers 515F and 806R), on 131,072 synthetic amplicon
    reads of 260-299 bp, held and measured as phase 6; the 5' phase
    launches the kernel from submit, the 3' phase from collect, and each
    must launch the 2-bit lane;
 8. paired TruSeq: -a AGATCGGAAGAGCACACGTCTGAACTCCAGTCA -A
    AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT -q 20 -m 20 -o -p (the TruSeq R1/R2
    adapters of cutadapt's user guide, Trim Galore's default -q 20 -m 20)
-   on 262,144 pairs of 2 x 150 bp (torch_fixtures.make_pairs), held to
+   on 131,072 pairs of 2 x 150 bp (torch_fixtures.make_pairs), held to
    the host path on both output files and the report (read counts, base
    pairs, the adapter statistics of both reads) and measured as phase 6
    (reads/s with a pair counted as one read); R1 launches from the first
@@ -67,17 +71,33 @@ Phases, each of which must pass:
    --discard-untrimmed on 131,072 make_amplicons reads, half of them
    reverse-complemented, held and measured as phase 6; both orientations
    launch from submit and each must launch the 2-bit lane, and about half
-   the reads must come out reverse-complemented.
+   the reads must come out reverse-complemented;
+10. long reads: the flagship -a AGATCGGAAGAGCACACGTCTGAACTCCAGTCA -e 0.1
+   -O 3 on 8,192 reads of 8,000-32,000 bp (PacBio HiFi and Oxford
+   Nanopore lengths; a quarter with the adapter at a uniform position,
+   3% with 1-3 N; torch_fixtures.make_long_reads), the file as one
+   chunk, held and measured as phase 6 (reads/s and bp/s, the idle
+   share); each lane must launch, every launch in the wide result;
+11. the output side, held and measured as phase 6 on every file: (a)
+   UMI to header, -u 8 --rename '{id}_{cut_prefix} {comment}' -a
+   ADAPTER --info-file (the "--rename" section of cutadapt's user guide)
+   on 262,144 reads of 108 bp, the 2-bit lane; (b) barcode
+   demultiplexing of pairs, -e 0.15 --no-indels -g
+   ^file:barcodes.fasta -o trimmed-{name}.1.fastq -p
+   trimmed-{name}.2.fastq ("Demultiplexing paired-end reads") on
+   262,144 pairs, 95% of them with one of 16 barcodes before R1: an
+   indexed host task, which must launch no kernel.
 
 Launch counters are set to 0 just before each counted window (the main
 path's warm pass, the dirty lane, each counted CLI run, the golden
-cases, the counted runs of phases 6 to 9) and read just after; each
+cases, the counted runs of phases 6 to 11) and read just after; each
 lane the window carries must have been launched there. Prints the
 card's name and power limit, one JSON line with every kernel's numbers
-(time, bound, time / bound and error at every shape the path launched,
-and the same for the CLI's shapes under "cli" and for phases 6 to 9
-under "host_stages", "linked", "paired" (by side) and "revcomp" (by
-orientation)), and as the last line
+(time, plain time, bound, time / bound and error at every shape the
+path launched, and the same for the CLI's shapes under "cli" and for
+phases 6 to 11 under "host_stages", "linked", "paired" (by side),
+"revcomp" (by orientation), "long_reads" and "output_side"; the wide
+launches under "wide_launches"), and as the last line
 {"ok": true, "device": {...}}.
 
 The workload and the parity matrix come from tests/torch_fixtures.py.
@@ -97,12 +117,13 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_READS = 524288
 N_DIRTY_READS = 262144
-# phase 6 (bench_configs.py:132-135) and phase 7 (linked 16S primers)
-N_POLYA_READS = 524288
-N_AMPLICON_READS = 262144
-# phase 8 (paired TruSeq, pairs of 2 x 150 bp) and phase 9 (revcomp
-# amplicons)
-N_PAIRS = 262144
+# phase 6 (bench_configs.py:132-135) and phase 7 (linked 16S primers);
+# halved since phases 10 and 11 came, so that the run keeps to its time
+N_POLYA_READS = 262144
+N_AMPLICON_READS = 131072
+# phase 8 (paired TruSeq, pairs of 2 x 150 bp; halved likewise) and
+# phase 9 (revcomp amplicons)
+N_PAIRS = 131072
 N_RC_AMPLICON_READS = 131072
 PARITY_READS = 1024
 PARITY_LENGTHS = (128, 512)
@@ -110,6 +131,19 @@ PARITY_LENGTHS = (128, 512)
 PARITY_LONG_LENGTH = 512
 # reads of the 4,000 bp adapter (its scalar check is the slow part)
 PARITY_VERY_LONG_READS = 64
+# the wide store on reads of 2**14 bp or more (the plain version's loop
+# over columns is the slow part)
+PARITY_WIDE_LONG_READS = 256
+PARITY_WIDE_LENGTHS = (16400, 20000)
+# the wide launches of the parity phase, per lane
+WIDE_PARITY = {}
+# phase 10: long reads (8,000-32,000 bp) and phase 11's output side
+N_LONG_READS = 8192
+# the long reads' file (about 330 MB) as one chunk, so that the 4-bit lane
+# gets a device batch and the path launches three wide shapes
+LONG_CHUNK_BYTES = 1 << 30
+N_UMI_READS = 262144
+N_BARCODED_PAIRS = 262144
 TIMED_PASSES = 3
 # HBM3 rate of the H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -204,32 +238,35 @@ def host_us(fn, reps: int) -> float:
 
 class Recorder:
     """Wraps the engine's kernel entry: notes the shape of every launch
-    and keeps a copy of the first inputs of each shape. Launches made
-    while warming() is true (the engine's warm-up on zeros) are only
-    counted, per lane, in warmup. task(tables) labels the task a launch
-    belongs to (the phase of a linked adapter), "" by default."""
+    (lane, rows, row bytes, task, wide result) and keeps a copy of the
+    first inputs of each shape. Launches made while warming() is true
+    (the engine's warm-up on zeros) are only counted, per lane, in
+    warmup. task(tables) labels the task a launch belongs to (the phase
+    of a linked adapter), "" by default."""
 
     def __init__(self, fn, warming=lambda: False, task=lambda tables: ""):
         self.fn = fn
         self.warming = warming
         self.task = task
-        self.calls = []  # (pack2, B, Wp, task)
-        self.inputs = {}  # (pack2, B, Wp, task) -> (enc, lengths, tables)
+        self.calls = []  # (pack2, B, Wp, task, wide)
+        # (pack2, B, Wp, task, wide) -> (enc, lengths, tables)
+        self.inputs = {}
         self.warmup = {"pack2": 0, "pack4": 0}
 
-    def launches(self, pack2: bool, task=None) -> int:
-        return sum(1 for k in self.calls
-                   if k[0] == pack2 and task in (None, k[3]))
+    def launches(self, pack2: bool, task=None, wide=None) -> int:
+        return sum(1 for k in self.calls if k[0] == pack2
+                   and task in (None, k[3]) and wide in (None, k[4]))
 
-    def __call__(self, enc, lengths, tables, pack2):
+    def __call__(self, enc, lengths, tables, pack2, wide=False):
         if self.warming():
             self.warmup["pack2" if pack2 else "pack4"] += 1
-            return self.fn(enc, lengths, tables, pack2)
-        key = (bool(pack2), enc.shape[0], enc.shape[1], self.task(tables))
+            return self.fn(enc, lengths, tables, pack2, wide=wide)
+        key = (bool(pack2), enc.shape[0], enc.shape[1], self.task(tables),
+               bool(wide))
         self.calls.append(key)
         if key not in self.inputs:
             self.inputs[key] = (enc.clone(), lengths.clone(), tables)
-        return self.fn(enc, lengths, tables, pack2)
+        return self.fn(enc, lengths, tables, pack2, wide=wide)
 
 
 def max_abs_err(got, want) -> int:
@@ -327,7 +364,73 @@ def parity_phase():
              f"{sorted(missing)} (ran {sorted(ran)})")
     log(f"kernel parity: all {runs} runs agree, all {len(ran)} "
         f"instantiations ran ({time.perf_counter() - t0:.1f} s)")
+    wide_parity(rng, worst)
     return worst
+
+
+def wide_parity(rng, worst) -> None:
+    """The wide (7, B) store against the plain version on all 7 fields
+    (found everywhere, the others where found) and the first five
+    against the scalar aligner: a spec of each layout mode (registers,
+    shared memory, device scratch) at 512 bp, and the flagship adapter on
+    reads of 2**14 bp or more, in both lanes. Updates ``worst``."""
+    import torch
+
+    import torch_fixtures as fx
+    from cutadapt_tpu_torch.ops import align_cuda
+
+    t0 = time.perf_counter()
+    flagship = fx.parity_specs()[0]
+    cases = [(spec, PARITY_READS, PARITY_LONG_LENGTH)
+             for spec in (flagship, fx.long_specs()[-1])]
+    cases.append((fx.very_long_spec(), PARITY_VERY_LONG_READS,
+                  PARITY_LONG_LENGTH))
+    cases.append((flagship, PARITY_WIDE_LONG_READS, PARITY_WIDE_LENGTHS))
+    before = dict(align_cuda.WIDE_LAUNCHES)
+    modes = set()
+    for spec, B, L in cases:
+        tables = align_cuda.make_tables(spec)
+        lay = align_cuda.kernel_layout(tables.m)
+        for pack2 in (True, False):
+            if isinstance(L, tuple):
+                raw, enc, lens = fx.long_batch(spec, rng, B, L, pack2)
+            else:
+                raw, enc, lens = fx.random_batch(spec, rng, B, L, pack2)
+            enc_d = torch.from_numpy(enc).cuda()
+            len_d = torch.from_numpy(lens).cuda()
+            got = align_cuda.locate_packed(enc_d, len_d, tables, pack2,
+                                           wide=True)
+            t1 = time.perf_counter()
+            plain = align_cuda.locate_reference(enc_d, len_d, tables, pack2,
+                                                wide=True)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t1
+            g = align_cuda.unpack_wide(got.cpu().numpy())
+            p = align_cuda.unpack_wide(plain.cpu().numpy())
+            label = (f"{spec.reference[:12]}.. m={len(spec.reference)} "
+                     f"{B} reads of {L} bp {'2-bit' if pack2 else '4-bit'} "
+                     f"[{lay.lanes} lanes x {lay.rows} rows, {lay.mode}]")
+            diff = fx.first_difference(g, p)
+            if diff is None:
+                diff = fx.first_difference(g[:5], fx.scalar_locate(
+                    spec, raw, lens))
+            if diff is not None:
+                fail(f"wide parity {label}: {diff} differs")
+            if not g[0].any():
+                fail(f"wide parity {label}: no read matched")
+            worst[pack2] = max(worst[pack2], max_abs_err(g, p))
+            modes.add(lay.mode)
+            log(f"  wide parity {label}: ok on all 7 fields "
+                f"({int(g[0].sum())} matches, longest ref_stop "
+                f"{int(g[6][g[0]].max())}, query_stop "
+                f"{int(g[2][g[0]].max())}; plain {plain_s:.1f} s)")
+    wide = {k: v - before[k] for k, v in align_cuda.WIDE_LAUNCHES.items()}
+    if modes != set(align_cuda.MODES) or min(wide.values()) < len(cases):
+        fail(f"wide parity: layout modes {sorted(modes)}, wide launches "
+             f"{wide}")
+    WIDE_PARITY.update(wide)
+    log(f"wide parity: {2 * len(cases)} runs agree, every layout mode, wide "
+        f"launches {wide} ({time.perf_counter() - t0:.1f} s)")
 
 
 def run_pass(engine, chunks, keep_output: bool):
@@ -513,9 +616,10 @@ def cli_phase(files, engine_rps: float) -> dict:
 
         align_cuda.reset_launch_counters()
         ran = 0
+        if fx.ENGINE_NOT_YET or fx.ENGINE_NOT_YET_PAIRED:
+            fail(f"golden cases the engine refuses: {fx.ENGINE_NOT_YET} "
+                 f"{fx.ENGINE_NOT_YET_PAIRED}")
         for case_id, params, expected, inpath in fx.golden_cases():
-            if case_id in fx.ENGINE_NOT_YET:
-                continue
             out = os.path.join(tmp, "golden_" + expected)
             cli.main(fx.golden_args(params, out, inpath))
             with open(out, "rb") as f, open(fx.golden_path(expected), "rb") as g:
@@ -540,7 +644,7 @@ def cli_phase(files, engine_rps: float) -> dict:
         if min(golden.values()) <= 0:
             fail(f"cli golden cases: a kernel lane was never launched: "
                  f"{golden}")
-        log(f"cli: {ran} accepted golden cases (single-end and paired) "
+        log(f"cli: all {ran} golden cases (single-end and paired) "
             f"byte-identical on the card; "
             f"their launches (warm-ups included) {golden}")
     if accel.FALLBACK_COUNT != fallbacks:
@@ -597,20 +701,27 @@ class OrientationTags:
         return getattr(self.local, "tag", "")
 
 
-def config_phase(label, args, inputs, task_of, tasks, lanes=(True,)):
-    """Phases 6 to 9: one configuration through cli.main on the card
+def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
+                 outputs=None, files=None, chunk_bytes=None):
+    """Phases 6 to 11: one configuration through cli.main on the card
     under CUTADAPT_TPU_TORCH_BATCH=require at -j 1, held to the port's
-    per-read host path (CUTADAPT_TPU_TORCH_BATCH=0): each output file
-    byte for byte (-o, and -p when ``inputs`` holds two files, R1 and
-    R2), and the report's read counts, base-pair counts and adapter
-    statistics. A first run, TIMED_PASSES timed runs (reads/s through
-    main, the median; a pair counts as one read), then one counted run:
-    launch counters at 0 just before it, read just after, each launch's
-    shape recorded by task (task_of(tables) in `tasks`), every task must
-    launch each lane of `lanes` (True: 2-bit, False: 4-bit); the engines
-    that run built then take one sequential pass over their side's reads
-    for the host time per stage. Returns (recorder, launches, reads/s,
-    the median wall time in seconds, the counted run's report parts)."""
+    per-read host path (CUTADAPT_TPU_TORCH_BATCH=0): every file the run
+    writes byte for byte (-o, and -p when ``inputs`` holds two files, R1
+    and R2, or what ``outputs(directory)`` names; side files named in
+    ``args`` as "{out}/name"), and the report's read counts, base-pair
+    counts and adapter statistics. ``files`` are written beside the
+    inputs, "{tmp}/name" in ``args``; ``chunk_bytes`` sets
+    CUTADAPT_TPU_TORCH_CHUNK_BYTES for the phase. A first run,
+    TIMED_PASSES timed runs (reads/s through main, the median; a pair
+    counts as one read), then one counted run: launch counters at 0 just
+    before it, read just after, each launch's shape recorded by task
+    (task_of(tables) in `tasks`), every task must launch each lane of
+    `lanes` (True: 2-bit, False: 4-bit); the engines that run built then
+    take one sequential pass over their side's reads for the host time
+    per stage. Returns (recorder, launches (with the wide ones under
+    "wide"), reads/s, the median wall time in seconds, the counted run's
+    report parts)."""
+    import shutil
     import tempfile
 
     import cutadapt_tpu_torch.adapters as port_adapters
@@ -621,49 +732,63 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,)):
 
     n_reads = inputs[0].count(b"\n") // 4
     fallbacks = accel.FALLBACK_COUNT
+    saved_chunk = os.environ.pop("CUTADAPT_TPU_TORCH_CHUNK_BYTES", None)
+    if chunk_bytes:
+        os.environ["CUTADAPT_TPU_TORCH_CHUNK_BYTES"] = str(chunk_bytes)
+    if outputs is None:
+        def outputs(d):
+            outs = ["-o", os.path.join(d, "out.1.fastq")]
+            if len(inputs) > 1:
+                outs += ["-p", os.path.join(d, "out.2.fastq")]
+            return outs
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cfg_") as tmp:
         paths = []
         for i, data in enumerate(inputs):
             paths.append(os.path.join(tmp, f"in.{i + 1}.fastq"))
             with open(paths[-1], "wb") as f:
                 f.write(data)
+        for name, data in (files or {}).items():
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(data)
 
         def run(tag, mode):
             os.environ["CUTADAPT_TPU_TORCH_BATCH"] = mode
             # adapters without a name are numbered per process
             port_adapters._adapter_counter = [0]
-            outs = [os.path.join(tmp, f"{tag}.{i + 1}.fastq")
-                    for i in range(len(inputs))]
+            d = os.path.join(tmp, tag)
+            os.makedirs(d)
             rep = os.path.join(tmp, f"{tag}.json")
-            argv = [*args, "-o", outs[0]]
-            if len(outs) > 1:
-                argv += ["-p", outs[1]]
+            argv = [a.format(tmp=tmp, out=d) for a in args] + outputs(d)
             t0 = time.perf_counter()
             cli.main(argv + ["--json", rep, *paths])
             dt = time.perf_counter() - t0
-            got = []
-            for out in outs:
-                with open(out, "rb") as f:
-                    got.append(f.read())
-                os.unlink(out)
+            got = {}
+            for name in sorted(os.listdir(d)):
+                with open(os.path.join(d, name), "rb") as f:
+                    got[name] = f.read()
+            shutil.rmtree(d)
             return got, report_parts(rep), dt
 
         want, want_rep, dt = run("host", "0")
         log(f"{label}: {n_reads} reads ({sum(map(len, inputs))} bytes in "
             f"{len(inputs)} files) through the per-read host path: "
-            f"{dt:.1f} s, {[len(w) for w in want]} bytes out, read counts "
-            f"{want_rep['read_counts']}, base pairs "
+            f"{dt:.1f} s, {len(want)} files out "
+            f"{ {k: len(v) for k, v in list(want.items())[:8]} }, read "
+            f"counts {want_rep['read_counts']}, base pairs "
             f"{want_rep['basepair_counts']}")
 
         def engine_run(tag):
             got, rep, dt = run(tag, "require")
-            for side, (g, w) in enumerate(zip(got, want)):
+            if sorted(got) != sorted(want):
+                fail(f"{label} {tag}: files {sorted(got)} differ from the "
+                     f"host path's {sorted(want)}")
+            for name, w in want.items():
+                g = got[name]
                 if g != w:
                     pos = next((i for i, (a, b) in enumerate(zip(g, w))
                                 if a != b), min(len(g), len(w)))
-                    fail(f"{label} {tag}: output {side + 1} differs from the "
-                         f"host path at byte {pos} ({len(g)} vs {len(w)} "
-                         f"bytes)")
+                    fail(f"{label} {tag}: {name} differs from the host "
+                         f"path at byte {pos} ({len(g)} vs {len(w)} bytes)")
             for key in want_rep:
                 if rep[key] != want_rep[key]:
                     fail(f"{label} {tag}: report {key} {rep[key]} differs "
@@ -704,6 +829,10 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,)):
             bp.locate_packed = rec.fn
             accel._setup_device = setup
         launches = dict(align_cuda.LAUNCHES)
+        launches["wide"] = dict(align_cuda.WIDE_LAUNCHES)
+    os.environ.pop("CUTADAPT_TPU_TORCH_CHUNK_BYTES", None)
+    if saved_chunk is not None:
+        os.environ["CUTADAPT_TPU_TORCH_CHUNK_BYTES"] = saved_chunk
     if accel.FALLBACK_COUNT != fallbacks:
         fail(f"{label}: {accel.FALLBACK_COUNT - fallbacks} fallbacks "
              f"({accel.LAST_FALLBACK})")
@@ -753,16 +882,16 @@ def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2: bool):
     return cols, cells, eq_cells, ops
 
 
-def bound_of(enc, lens, tables, pack2, clock_hz, sms):
+def bound_of(enc, lens, tables, pack2, clock_hz, sms, wide=False):
     """The least time the card needs for one launch on these inputs: the
     larger of the integer operations the data needs (dp_work) at the
-    card's int32 rate and the bytes moved (inputs read once, the result
-    written once) at its memory rate. Returns (ms, "operations" or
-    "bytes", dp_work's tuple)."""
+    card's int32 rate and the bytes moved (inputs read once, the result,
+    2 or 7 int32 per read, written once) at its memory rate. Returns (ms,
+    "operations" or "bytes", dp_work's tuple)."""
     work = dp_work(enc.cpu().numpy(), lens.cpu().numpy(), tables, pack2)
     ops_s = work[3] / (sms * INT32_LANES_PER_SM * clock_hz)
     nbytes = enc.numel() + 4 * enc.shape[0] + 4 * len(tables.table) \
-        + 8 * enc.shape[0]
+        + 4 * (7 if wide else 2) * enc.shape[0]
     bytes_s = nbytes / PEAK_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes", work)
@@ -770,51 +899,59 @@ def bound_of(enc, lens, tables, pack2, clock_hz, sms):
 
 def kernel_numbers(rec, pack2, clock_hz, sms):
     """Kernel time, bound, time / bound and the error against the plain
-    version at every dispatch shape of a lane the path launched; the
-    plain version's time at the largest; the device time of all the
-    run's launches."""
+    version (on all 7 fields of a wide launch) at every dispatch shape of
+    a lane the path launched, with the plain version's time there (one
+    run, CUDA events); the device time of all the run's launches."""
+    import torch
+
     import torch_fixtures as fx
     from cutadapt_tpu_torch.ops import align_cuda
 
     shapes = sorted((k for k in rec.inputs if k[0] == pack2),
-                    key=lambda s: -s[1])
+                    key=lambda s: (-s[1], -s[2]))
     if not shapes:
         fail(f"no {'2-bit' if pack2 else '4-bit'} launch was recorded")
     per_shape = []
     for key in shapes:
         enc, lens, tables = rec.inputs[key]
+        wide = key[4]
+        unpack = align_cuda.unpack_wide if wide else align_cuda.unpack_result
 
         def call():
-            return align_cuda.locate_packed(enc, lens, tables, pack2)
+            return align_cuda.locate_packed(enc, lens, tables, pack2,
+                                            wide=wide)
 
-        g = align_cuda.unpack_result(call().cpu().numpy())
-        p = align_cuda.unpack_result(
-            align_cuda.locate_reference(enc, lens, tables, pack2).cpu().numpy()
-        )
+        g = unpack(call().cpu().numpy())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = align_cuda.locate_reference(enc, lens, tables, pack2,
+                                            wide=wide)
+        end.record()
+        end.synchronize()
+        p = unpack(plain.cpu().numpy())
         diff = fx.first_difference(g, p)
         if diff is not None:
             fail(f"kernel vs plain at the path's shape {key}: {diff}")
-        ms = cuda_ms(call, 20, graph=True)
+        ms = cuda_ms(call, 20 if key[2] < 1024 else 5, graph=True)
         bound_ms, bound_by, work = bound_of(enc, lens, tables, pack2,
-                                            clock_hz, sms)
+                                            clock_hz, sms, wide)
         per_shape.append(dict(
-            task=key[3], shape=[key[1], key[2]],
+            task=key[3], shape=[key[1], key[2]], wide=wide,
+            plain_ms=start.elapsed_time(end),
             launches=rec.calls.count(key), ms=ms,
             bound_ms=bound_ms, bound_by=bound_by, x_bound=ms / bound_ms,
             max_abs_err=max_abs_err(g, p),
-            stream_ms=cuda_ms(call, 20), host_us_per_call=host_us(call, 20),
+            stream_ms=cuda_ms(call, 20 if key[2] < 1024 else 5),
+            host_us_per_call=host_us(call, 20),
             dp_cells=work[1], dp_columns=work[0],
             match_share=work[2] / max(work[1], 1),
             ops_per_cell=work[3] / max(work[1], 1),
         ))
     top = per_shape[0]
-    enc, lens, tables = rec.inputs[shapes[0]]
-    plain_ms = cuda_ms(
-        lambda: align_cuda.locate_reference(enc, lens, tables, pack2), 2
-    )
-    lay = align_cuda.kernel_layout(tables.m)
+    lay = align_cuda.kernel_layout(rec.inputs[shapes[0]][2].m)
     return dict(
-        shape=top["shape"], ms=top["ms"], plain_ms=plain_ms,
+        shape=top["shape"], ms=top["ms"], plain_ms=top["plain_ms"],
         bound_ms=top["bound_ms"], bound_by=top["bound_by"],
         max_abs_err=max(d["max_abs_err"] for d in per_shape),
         per_shape=per_shape,
@@ -823,19 +960,20 @@ def kernel_numbers(rec, pack2, clock_hz, sms):
     )
 
 
-PER_SHAPE_KEYS = ("task", "shape", "launches", "ms", "bound_ms", "bound_by",
-                  "x_bound", "max_abs_err")
+PER_SHAPE_KEYS = ("task", "shape", "wide", "launches", "ms", "plain_ms",
+                  "bound_ms", "bound_by", "x_bound", "max_abs_err")
 
 
 def shape_line(nums) -> str:
     return "; ".join(
         f"{d['task'] + ' ' if d['task'] else ''}"
+        f"{'wide ' if d['wide'] else ''}"
         f"{d['shape'][0]}x{d['shape'][1]}: {d['ms']:.4f} ms, bound "
         f"{d['bound_ms']:.5f} ms ({d['bound_by']}), {d['x_bound']:.2f}x, "
         f"{d['launches']} launches, {d['stream_ms']:.4f} ms per launch "
         f"back to back on the stream ({d['host_us_per_call']:.1f} us of "
         f"host time per call), {d['dp_cells']} cells, "
-        f"{d['ops_per_cell']:.3f} ops/cell"
+        f"{d['ops_per_cell']:.3f} ops/cell, plain {d['plain_ms']:.1f} ms"
         for d in nums["per_shape"])
 
 
@@ -1022,6 +1160,65 @@ def main() -> int:
     if not 0.35 <= rc_share <= 0.65:
         fail(f"revcomp: {rc_share:.4f} of the reads were reverse-"
              f"complemented, not about half")
+    # 10. long reads: the flagship adapter on 8,000-32,000 bp reads, the
+    # kernel's wide result in both lanes
+    t0 = time.perf_counter()
+    long_reads = fx.make_long_reads(N_LONG_READS)
+    from cutadapt_tpu_torch.io.chunks import parse_fastq_chunk
+
+    long_bases = int(parse_fastq_chunk(long_reads).seq_len.sum())
+    log(f"long reads: {N_LONG_READS} reads of "
+        f"{fx.LONG_READ_LENGTHS[0]}-{fx.LONG_READ_LENGTHS[1]} bp, "
+        f"{long_bases} bases, generated ({time.perf_counter() - t0:.1f} s)")
+    rec10, launches10, rps10, wall10, _ = config_phase(
+        "long reads", ["-a", fx.ADAPTER, "-e", "0.1", "-O", "3"],
+        [long_reads], lambda tables: "3'", ["3'"], lanes=(True, False),
+        chunk_bytes=LONG_CHUNK_BYTES,
+    )
+    del long_reads
+    for pack2 in (True, False):
+        if rec10.launches(pack2, wide=True) <= 0 or rec10.launches(
+                pack2, wide=False):
+            fail(f"long reads: the {'2-bit' if pack2 else '4-bit'} lane's "
+                 f"launches were not all wide: {rec10.calls}")
+    log(f"long reads: median {rps10:.1f} reads/s = {long_bases / wall10:.1f} "
+        f"bp/s through main; wide launches {launches10['wide']}")
+    # 11. the output side: (a) UMI to header with an info file, (b) barcode
+    # demultiplexing of pairs (an indexed host task: no kernel launch)
+    t0 = time.perf_counter()
+    umi_reads = fx.make_umi_reads(N_UMI_READS)
+    log(f"output side: {N_UMI_READS} UMI reads of "
+        f"{fx.UMI_LEN + fx.READ_LEN} bp generated "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rec11, launches11, rps11, wall11, rep11 = config_phase(
+        "output side (a)",
+        ["-u", str(fx.UMI_LEN), "--rename",
+         "{{id}}_{{cut_prefix}} {{comment}}", "-a", fx.ADAPTER,
+         "--info-file", "{out}/info.tsv"],
+        [umi_reads], lambda tables: "3'", ["3'"],
+    )
+    del umi_reads
+    t0 = time.perf_counter()
+    r1, r2, barcodes = fx.make_barcoded_pairs(N_BARCODED_PAIRS)
+    log(f"output side: {N_BARCODED_PAIRS} pairs, {fx.N_BARCODES} barcodes, "
+        f"generated ({time.perf_counter() - t0:.1f} s)")
+    _, launches11b, rps11b, _, rep11b = config_phase(
+        "output side (b)",
+        ["-e", "0.15", "--no-indels", "-g", "^file:{tmp}/barcodes.fasta"],
+        [r1, r2], lambda tables: "", [], lanes=(),
+        outputs=lambda d: ["-o", os.path.join(d, "trimmed-{name}.1.fastq"),
+                           "-p", os.path.join(d, "trimmed-{name}.2.fastq")],
+        files={"barcodes.fasta": barcodes},
+    )
+    del r1, r2
+    if launches11b["pack2"] or launches11b["pack4"]:
+        fail(f"output side (b): the indexed barcodes launched the kernel "
+             f"{launches11b}")
+    routed = rep11b["read_counts"]["read1_with_adapter"]
+    if not 0.9 * N_BARCODED_PAIRS <= routed <= N_BARCODED_PAIRS:
+        fail(f"output side (b): {routed} pairs carried a barcode, not 95%")
+    log(f"output side: (a) {rps11:.1f} reads/s, (b) {rps11b:.1f} pairs/s "
+        f"through main, {routed} pairs routed by barcode")
     busy = {}
     path_lanes = {}
     for path, rec, launches, lanes, wall in (
@@ -1029,6 +1226,8 @@ def main() -> int:
         ("linked", rec7, launches7, (True,), None),
         ("paired", rec8, launches8, (True, False), wall8),
         ("revcomp", rec9, launches9, (True,), wall9),
+        ("long_reads", rec10, launches10, (True, False), wall10),
+        ("output_side", rec11, launches11, (True,), wall11),
     ):
         device_ms = 0.0
         for pack2 in lanes:
@@ -1041,6 +1240,7 @@ def main() -> int:
             device_ms += nums["run_kernel_ms"]
             path_lanes.setdefault(pack2, {})[path] = dict(
                 launches=launches[lane], warmup_launches=rec.warmup[lane],
+                wide_launches=launches["wide"][lane],
                 by_task={t: rec.launches(pack2, t)
                          for t in sorted({k[3] for k in rec.calls
                                           if k[0] == pack2})},
@@ -1058,6 +1258,11 @@ def main() -> int:
     log(f"linked_reads_per_sec {rps7}")
     log(f"paired_reads_per_sec {rps8}")
     log(f"revcomp_reads_per_sec {rps9}")
+    log(f"long_reads_reads_per_sec {rps10}")
+    log(f"long_reads_bp_per_sec {long_bases / wall10}")
+    log(f"long_reads_idle_share {1 - busy['long_reads']}")
+    log(f"output_side_umi_reads_per_sec {rps11}")
+    log(f"output_side_demux_pairs_per_sec {rps11b}")
 
     src = "cutadapt_tpu_torch/csrc/align_locate.cu"
     kernels = []
@@ -1088,9 +1293,15 @@ def main() -> int:
     kernels[1].update(path_lanes[False])
     for path, rec, launches in (("host_stages", rec6, launches6),
                                 ("linked", rec7, launches7),
-                                ("revcomp", rec9, launches9)):
+                                ("revcomp", rec9, launches9),
+                                ("output_side", rec11, launches11)):
         kernels[1][path] = dict(launches=launches["pack4"],
                                 warmup_launches=rec.warmup["pack4"])
+    for kernel, lane in zip(kernels, ("pack2", "pack4")):
+        kernel["wide_launches"] = dict(
+            parity=WIDE_PARITY[lane],
+            long_reads=kernel["long_reads"]["wide_launches"],
+        )
     log(f"reads_per_sec {rps}")
     # the card again, near the end of the output
     log(nvidia_smi("name,power.limit"))

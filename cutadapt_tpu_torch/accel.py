@@ -14,7 +14,11 @@ sets (the indexed kinds), with --times and every action (trim, retain,
 crop, mask, lowercase, --no-trim), or around --revcomp (its adapter
 stage last; trim, mask, lowercase, --no-trim); the filters -m/-M with
 routed outputs, --discard-trimmed/untrimmed with --untrimmed-output,
---max-n, --max-ee, --max-aer and --discard-casava.
+--max-n, --max-ee, --max-aer and --discard-casava; the trailing name and
+quality edits (--strip-suffix, --length-tag, -x/-y, --zero-cap) and
+--rename; the side files (--rest-file, --info-file, --wildcard-file);
+and demultiplexing by adapter name, with --untrimmed-output. Reads of
+2**14 bp or more take the kernel's wide result.
 
 Paired-end (_run_paired): two files or one interleaved file of FASTQ or
 FASTA, written as two files or interleaved; per side the same stages
@@ -22,16 +26,19 @@ FASTA, written as two files or interleaved; per side the same stages
 revcomp stages built through the API), --pair-adapters, paired
 --revcomp with the host stages after its swap, and the pair filters
 (-m/-M per side, --max-n, --max-ee, --discard-(un)trimmed,
---pair-filter=any|both|first) with their routed paired outputs. Two
-engines, one per side, share one device; the pair filters, the pair
-match of --pair-adapters and the four matching runs of the paired
---revcomp run in emit.
+--pair-filter=any|both|first) with their routed paired outputs; per
+side the trailing name edits and --zero-cap, a paired --rename, the
+side files (R1's, and R2's --info-file-paired), and paired and
+combinatorial demultiplexing. Two engines, one per side, share one
+device; the pair filters, the pair match of --pair-adapters, the four
+matching runs of the paired --revcomp and the demultiplexing routes run
+in emit.
 
 Everything else is refused in the translation, before an engine is
-built, with a reason: adapters needing more than 16 query classes, name
-edits (--rename, --strip-suffix, -x/-y, --length-tag) and --zero-cap,
-side files (--rest-file, --info-file, --wildcard-file) and
-demultiplexing. A refused run is counted (:data:`FALLBACK_COUNT`) and
+built, with a reason: adapters needing more than 16 query classes (the
+byte lane), and the combinations the JAX package's engine refuses too
+(a host stage after --revcomp, --rest-file with linked adapters, ...).
+A refused run is counted (:data:`FALLBACK_COUNT`) and
 takes the per-read host path, or, under
 ``CUTADAPT_TPU_TORCH_BATCH=require``, fails with
 :class:`BatchRequiredError`.
@@ -237,7 +244,11 @@ class SingleTranslation:
     stages: list
     filters: list
     cutter: object
-    sink: object  # SingleEndSink
+    sink: object  # SingleEndSink or Demultiplexer
+    rename: object  # trailing Renamer, if any
+    side: dict  # rest/info/wildcard text files
+    name_edits: list  # trailing name-edit ops, in order
+    zero_cap: object  # ZeroCapper quality base, if any
 
 
 class _Refused(Exception):
@@ -383,15 +394,101 @@ def _translate_predicate(pred):
     return (pred.kind, pred.threshold)
 
 
+def _split_edits(modifiers):
+    """Split the trailing name and quality edits (SuffixRemover,
+    LengthTagModifier, PrefixSuffixAdder, ZeroCapper) off a modifier
+    list: (the window modifiers, the name-edit ops in order, the
+    ZeroCapper's quality base or None). The CLI emits them after every
+    window-changing modifier; one before a window modifier is refused."""
+    from .modifiers import (
+        LengthTagModifier, PrefixSuffixAdder, SuffixRemover, ZeroCapper,
+    )
+
+    edit_types = (SuffixRemover, LengthTagModifier, PrefixSuffixAdder,
+                  ZeroCapper)
+    split = next(
+        (k for k, mod in enumerate(modifiers) if isinstance(mod, edit_types)),
+        len(modifiers),
+    )
+    edits = []
+    zero_cap = None
+    for mod in modifiers[split:]:
+        if not isinstance(mod, edit_types):
+            raise _Refused(
+                f"modifier {type(mod).__name__} after a name or quality "
+                "edit has no engine form"
+            )
+        op = _edit_op(mod)
+        if op is None:
+            zero_cap = mod.quality_base
+        else:
+            edits.append(op)
+    return modifiers[:split], edits, zero_cap
+
+
+def _edit_op(mod):
+    """The name-edit op of a SuffixRemover, LengthTagModifier or
+    PrefixSuffixAdder; None for a ZeroCapper."""
+    from .modifiers import LengthTagModifier, PrefixSuffixAdder, SuffixRemover
+
+    if isinstance(mod, SuffixRemover):
+        return ("strip", mod.suffix)
+    if isinstance(mod, LengthTagModifier):
+        return ("lentag", mod)
+    if isinstance(mod, PrefixSuffixAdder):
+        return ("presuf", mod.prefix, mod.suffix)
+    return None
+
+
+def _check_rename(rename_fields, stage_lists):
+    """Refuse the --rename fields the engine cannot fill:
+    {match_sequence} after a linked adapter (its events carry no single
+    match geometry), and {cut_prefix}/{cut_suffix} when a -u cut follows
+    another stage (cut bytes are recovered from the parsed read)."""
+    from .batch_pipeline import CutStage
+
+    if "match_sequence" in rename_fields and any(
+        t.kind == "linked"
+        for st in stage_lists for x in st if hasattr(x, "tasks")
+        for t in x.tasks
+    ):
+        raise _Refused("--rename with {match_sequence} after a linked "
+                       "adapter has no engine form")
+    if {"cut_prefix", "cut_suffix"} & rename_fields:
+        for st in stage_lists:
+            past_cuts = False
+            for stage in st:
+                if isinstance(stage, CutStage):
+                    if past_cuts:
+                        raise _Refused(
+                            "--rename with {cut_prefix}/{cut_suffix} and a "
+                            "-u cut after another stage has no engine form"
+                        )
+                else:
+                    past_cuts = True
+
+
+def _has_linked(stages) -> bool:
+    return any(
+        t.kind == "linked" for st in stages if hasattr(st, "tasks")
+        for t in st.tasks
+    )
+
+
 def _translate_single(pipeline, fasta: bool = False) -> SingleTranslation:
     """Map an eligible single-end host pipeline to the engine's stages,
-    filters, cutter and sink, or raise _Refused. The final step must be
-    a plain sink; every writer must be a Fastq- or FastaWriter (FASTA
-    input requires FASTA output: a FASTQ writer would raise on the host
-    path, which must stay in charge of that error)."""
+    filters, cutter, sink or Demultiplexer, trailing name edits and
+    --rename, and side files, or raise _Refused. Every writer must be a
+    Fastq- or FastaWriter (FASTA input requires FASTA output: a FASTQ
+    writer would raise on the host path, which must stay in charge of
+    that error)."""
     from .batch_pipeline import FilterSpec
     from .io.fastq import FastaWriter, FastqWriter
-    from .steps import SingleEndFilter, SingleEndSink
+    from .modifiers import Renamer
+    from .steps import (
+        Demultiplexer, InfoFileWriter, RestFileWriter, SingleEndFilter,
+        SingleEndSink, WildcardFileWriter,
+    )
 
     writer_classes = (FastaWriter,) if fasta else (FastqWriter, FastaWriter)
 
@@ -404,31 +501,75 @@ def _translate_single(pipeline, fasta: bool = False) -> SingleTranslation:
 
     from .batch_pipeline import NextseqStage, QualityStage
 
+    modifiers = list(pipeline._modifiers)
+    rename = None
+    if modifiers and type(modifiers[-1]) is Renamer:
+        rename = modifiers.pop()
+    modifiers, name_edits, zero_cap = _split_edits(modifiers)
     stages = []
     cutter = None
-    for mod in pipeline._modifiers:
+    for mod in modifiers:
         stage, stage_cutter = _translate_modifier(mod, cutter is not None)
         cutter = stage_cutter or cutter
         stages.append(stage)
+    if rename is not None:
+        _check_rename(
+            {text for is_field, text in rename._parts if is_field}, [stages]
+        )
     _check_last_stage(stages)
     rc_stage = _revcomp_stage(stages)
     if fasta and rc_stage is not None:
         # FASTA chunks alias quality offsets to the sequence: the rc
         # copy must complement sequences only
         rc_stage.has_quals = False
-    if fasta and any(
+    if fasta and (zero_cap is not None or any(
         isinstance(s, (QualityStage, NextseqStage)) for s in stages
-    ):
+    )):
         # FASTA carries no qualities: the host path owns that error
-        raise _Refused("quality trimming of FASTA input has no engine form")
+        raise _Refused("quality trimming or capping of FASTA input has no "
+                       "engine form")
 
     filters = []
     sink = None
+    side = {"rest": None, "info": None, "wildcard": None}
     for step in pipeline._steps:
         if sink is not None:
             raise _Refused(f"step {type(step).__name__} after the sink")
+        if isinstance(step, (RestFileWriter, InfoFileWriter,
+                             WildcardFileWriter)):
+            # side-file rows come from the match events, before any
+            # filter (the reference's step order); mask/lowercase record
+            # the same match geometry, and under --revcomp the rows slice
+            # the orientation-selected chunk
+            if filters:
+                raise _Refused("a side file after a filter has no engine "
+                               "form")
+            key = {InfoFileWriter: "info", WildcardFileWriter: "wildcard",
+                   RestFileWriter: "rest"}[type(step)]
+            if key == "info" and fasta:
+                raise _Refused("--info-file of FASTA input has no engine "
+                               "form (its rows hold qualities)")
+            if key != "info" and _has_linked(stages):
+                # the reference's rest()/wildcards() have no linked form:
+                # the host path owns that failure
+                raise _Refused(f"--{key}-file with linked adapters has no "
+                               "engine form")
+            if side[key] is not None:
+                raise _Refused(f"a second --{key}-file has no engine form")
+            side[key] = step._file
+            continue
         if isinstance(step, SingleEndSink):
             check_writer(step.writer, "the output")
+            sink = step
+            continue
+        if isinstance(step, Demultiplexer):
+            if cutter is None:
+                raise _Refused("demultiplexing without an adapter stage has "
+                               "no engine form")
+            for w in step._writers.values():
+                check_writer(w, "a demultiplexed output")
+            if step._untrimmed_writer is not None:
+                check_writer(step._untrimmed_writer, "the untrimmed output")
             sink = step
             continue
         if not isinstance(step, SingleEndFilter):
@@ -444,7 +585,8 @@ def _translate_single(pipeline, fasta: bool = False) -> SingleTranslation:
         filters.append(FilterSpec(kind, threshold, step))
     if sink is None:
         raise _Refused("the pipeline ends without a sink")
-    return SingleTranslation(stages, filters, cutter, sink)
+    return SingleTranslation(stages, filters, cutter, sink, rename, side,
+                             name_edits, zero_cap)
 
 
 def _check_last_stage(stages):
@@ -630,6 +772,353 @@ def _apply_side_stats(stats, stages, cutter, written_lengths):
     return stats["total_bp"]
 
 
+def _emit_side_files(rest_fh, info_fh, wildcard_fh, chunk, stats, stage,
+                     final_ws, final_we, precap_chunk=None, rc_flags=None,
+                     walk_chunk=None):
+    """Write one chunk's --rest-file, --info-file and --wildcard-file
+    rows from the engine's match events, in the reference's formats
+    (steps.py RestFileWriter, InfoFileWriter, WildcardFileWriter): rows
+    in read order, a read's matches in round order, the trailing is_rc
+    column on match rows and the 4-column -1 rows of unmatched reads.
+
+    ``precap_chunk``: with --zero-cap, match rows show the qualities
+    before the trailing ZeroCapper ran (the host slices
+    info.original_read), unmatched rows the capped read. ``rc_flags``:
+    under --revcomp, the per-read is_rc flags ('1'/'0' in the is_rc
+    column); ``chunk`` is then the orientation-selected chunk.
+    ``walk_chunk``: under paired --revcomp, the info rows walk the
+    physical side's read (reverse-complemented where rc won), while the
+    matches came from the swapped partner (:func:`_rc_walk_chunk`);
+    rest and wildcard rows slice ``chunk``, the matched read's bytes."""
+    buf = chunk.buf
+    match_qual_buf = (precap_chunk or chunk).buf
+    hs, he = chunk.head_start, chunk.head_end
+    ss, qo = chunk.seq_start, chunk.qual_start
+
+    def text(start, a, b):
+        return bytes(buf[start + a : start + b]).decode("latin-1")
+
+    if walk_chunk is not None:
+        w_buf = w_qbuf = walk_chunk.buf
+        w_ss, w_qo, w_sl = (walk_chunk.seq_start, walk_chunk.qual_start,
+                            walk_chunk.seq_len)
+    else:
+        w_buf, w_qbuf = buf, match_qual_buf
+        w_ss, w_qo, w_sl = ss, qo, chunk.seq_len
+
+    def wtext(start, a, b):
+        return bytes(w_buf[start + a : start + b]).decode("latin-1")
+
+    def wqtext(start, a, b):
+        return bytes(w_qbuf[start + a : start + b]).decode("latin-1")
+
+    matches_of = {}
+    for ev in stats.get("adapter_events", ()):
+        task = stage.tasks[ev["task"]]
+        for j, r in enumerate(ev["reads"]):
+            matches_of.setdefault(int(r), []).append((task, ev, j))
+
+    if rest_fh is not None:
+        rows = []
+        for r, match_list in sorted(matches_of.items()):
+            task, ev, j = match_list[-1]
+            w0, w1 = int(ev["ws"][j]), int(ev["we"][j])
+            if ev["as_front"][j]:
+                lo, hi = w0, w0 + int(ev["qs"][j])
+            else:
+                lo, hi = w0 + int(ev["qe"][j]), w1
+            if hi > lo:
+                rows.append(f"{text(ss[r], lo, hi)} "
+                            f"{text(hs[r], 0, he[r] - hs[r])}\n")
+        rest_fh.write("".join(rows))
+
+    if wildcard_fh is not None:
+        rows = []
+        for r, match_list in sorted(matches_of.items()):
+            task, ev, j = match_list[-1]
+            adapter_seq = task.adapters[int(ev["sub"][j])].sequence
+            w0, w1 = int(ev["ws"][j]), int(ev["we"][j])
+            rel = int(ev["qs"][j])
+            astart, astop = int(ev["astart"][j]), int(ev["astop"][j])
+            chars = [
+                chr(buf[ss[r] + w0 + rel + i])
+                for i in range(astop - astart)
+                if adapter_seq[astart + i] == "N" and rel + i < w1 - w0
+            ]
+            rows.append(f"{''.join(chars)} "
+                        f"{text(hs[r], 0, he[r] - hs[r])}\n")
+        wildcard_fh.write("".join(rows))
+
+    if info_fh is not None:
+        rows = []
+        for r in range(chunk.n_records):
+            name = text(hs[r], 0, he[r] - hs[r])
+            match_list = matches_of.get(r)
+            if not match_list:
+                w0, w1 = int(final_ws[r]), int(final_we[r])
+                rows.append(f"{name}\t-1\t{text(ss[r], w0, w1)}"
+                            f"\t{text(qo[r], w0, w1)}\n")
+                continue
+            # the reference slices the original read with coordinates of
+            # the modified one (InfoFileWriter walks info.original_read
+            # through match.trimmed), clipping included
+            lo, hi = 0, int(w_sl[r])
+            for task, ev, j in match_list:
+                rel_a, rel_b = int(ev["qs"][j]), int(ev["qe"][j])
+                a = min(lo + rel_a, hi)
+                b = min(lo + rel_b, hi)
+                adapter = task.adapters[int(ev["sub"][j])]
+                rows.append("\t".join((
+                    name, str(int(ev["errors"][j])), str(rel_a), str(rel_b),
+                    wtext(w_ss[r], lo, a), wtext(w_ss[r], a, b),
+                    wtext(w_ss[r], b, hi),
+                    # linked phases carry ';1'/';2' (reference
+                    # adapters.py:1157-1171)
+                    adapter.name + ev.get("suffix", ""),
+                    wqtext(w_qo[r], lo, a), wqtext(w_qo[r], a, b),
+                    wqtext(w_qo[r], b, hi),
+                    "" if rc_flags is None else ("1" if rc_flags[r] else "0"),
+                )) + "\n")
+                if ev["as_front"][j]:
+                    lo = b
+                else:
+                    hi = a
+        info_fh.write("".join(rows))
+
+
+def _cut_bytes(cut_chunk, i, cut_lengths):
+    """{cut_prefix} and {cut_suffix} of read i: the bytes the -u cuts
+    removed, replayed on the parsed read."""
+    cbuf, css = cut_chunk.buf, int(cut_chunk.seq_start[i])
+    start, end = 0, int(cut_chunk.seq_len[i])
+    prefix = suffix = b""
+    for length in cut_lengths:
+        if length > 0:
+            stop = min(start + length, end)
+            prefix = bytes(cbuf[css + start : css + stop])
+            start = stop
+        elif length < 0:
+            begin = max(end + length, start)
+            suffix = bytes(cbuf[css + begin : css + end])
+            end = begin
+    return prefix, suffix
+
+
+def _make_name_editor(edits, rename, chunk, stats, adapter_names,
+                      cut_lengths, final_ws, final_we, cut_chunk=None):
+    """Per-read header edit of the trailing name modifiers
+    (SuffixRemover, LengthTagModifier, PrefixSuffixAdder) and the
+    --rename template, in the host's order and semantics.
+
+    Under --revcomp, ``chunk`` is the orientation-selected chunk (so
+    {match_sequence} slices the bytes the match was found in) while
+    ``cut_chunk`` is the parsed one: the -u cuts ran before the
+    orientation choice, so {cut_prefix}/{cut_suffix} show forward
+    bytes."""
+    buf = chunk.buf
+    ss = chunk.seq_start
+    if cut_chunk is None:
+        cut_chunk = chunk
+    gids = stats["last_adapter_gid"]
+    is_rc = stats.get("is_rc")
+    names = [name.encode("latin-1") for name in adapter_names]
+    final_len = (final_we - final_ws).astype(np.int64)
+
+    def adapter_name_of(i):
+        g = int(gids[i])
+        return names[g] if g >= 0 else b"no_adapter"
+
+    steps = []
+    for op in edits:
+        if op[0] == "strip":
+            def step(i, header, _sfx=op[1].encode("latin-1")):
+                if _sfx and header.endswith(_sfx):
+                    return header[: -len(_sfx)]
+                return header
+        elif op[0] == "lentag":
+            def step(i, header, _mod=op[1]):
+                text = header.decode("latin-1")
+                if _mod.length_tag in text:
+                    text = _mod.regex.sub(
+                        f"{_mod.length_tag}{int(final_len[i])}", text
+                    )
+                return text.encode("latin-1")
+        else:  # presuf
+            def step(i, header, _pre=op[1], _suf=op[2]):
+                name = adapter_name_of(i).decode("latin-1")
+                return (_pre.replace("{name}", name).encode("latin-1")
+                        + header
+                        + _suf.replace("{name}", name).encode("latin-1"))
+        steps.append(step)
+
+    if rename is not None:
+        parts = [
+            (is_field, text if is_field else text.encode("latin-1"))
+            for is_field, text in rename._parts
+        ]
+        used = {text for is_field, text in rename._parts if is_field}
+        geometry = (
+            _last_match_geometry(stats, chunk.n_records)
+            if "match_sequence" in used else None
+        )
+        need_cuts = bool({"cut_prefix", "cut_suffix"} & used)
+
+        def render(i, header):
+            values = {
+                "header": header,
+                "rc": b"rc" if is_rc is not None and is_rc[i] else b"",
+            }
+            if geometry is not None:
+                has, a, b = geometry
+                values["match_sequence"] = (
+                    bytes(buf[ss[i] + a[i] : ss[i] + b[i]]) if has[i] else b""
+                )
+            fields = header.split(None, 1)
+            values["id"] = fields[0] if fields else b""
+            values["comment"] = fields[1] if len(fields) == 2 else b""
+            if "adapter_name" in used:
+                values["adapter_name"] = adapter_name_of(i)
+            if need_cuts:
+                values["cut_prefix"], values["cut_suffix"] = _cut_bytes(
+                    cut_chunk, i, cut_lengths
+                )
+            return b"".join(
+                values[text] if is_field else text for is_field, text in parts
+            )
+
+        steps.append(render)
+
+    def edit(i, header):
+        for step in steps:
+            header = step(i, header)
+        return header
+
+    return edit
+
+
+def _with_headers(chunk, new_heads):
+    """A ParsedChunk whose headers are ``new_heads``, appended to the
+    original buffer so sequence and quality offsets stay valid."""
+    from .io.chunks import ParsedChunk
+
+    lens = np.array([len(h) for h in new_heads], np.int64)
+    ends = np.cumsum(lens)
+    base = len(chunk.buf)
+    combined = np.concatenate(
+        [chunk.buf, np.frombuffer(b"".join(new_heads), np.uint8)]
+    )
+    return ParsedChunk(
+        combined, base + ends - lens, base + ends, chunk.seq_start,
+        chunk.seq_len, chunk.qual_start, has_cr=chunk.has_cr,
+    )
+
+
+def _edit_headers(chunk, editor):
+    """A ParsedChunk whose headers ``editor(i, header)`` rewrote."""
+    buf, hs, he = chunk.buf, chunk.head_start, chunk.head_end
+    return _with_headers(chunk, [
+        editor(i, bytes(buf[hs[i] : he[i]])) for i in range(chunk.n_records)
+    ])
+
+
+def _last_match_geometry(stats, n_records):
+    """Per read, the absolute [a, b) window coordinates of the last
+    adapter match (later rounds overwrite earlier ones) and a has-match
+    mask, for the {match_sequence} field."""
+    has = np.zeros(n_records, bool)
+    a = np.zeros(n_records, np.int32)
+    b = np.zeros(n_records, np.int32)
+    for ev in stats.get("adapter_events", ()):
+        reads = ev["reads"]
+        has[reads] = True
+        a[reads] = ev["ws"] + ev["qs"]
+        b[reads] = ev["ws"] + ev["qe"]
+    return has, a, b
+
+
+def _paired_rename_headers(chunks, rename, gids_pair, names_pair, cuts_pair,
+                           geometry_pair, cut_chunks=None):
+    """Renamed header chunks of both sides under PairedEndRenamer's
+    semantics (reference modifiers.py:700-803): {rn} is the read number,
+    {r1.x}/{r2.x} name a side, bare fields the side being renamed, and
+    the renamed IDs of a pair must still match (InvalidTemplate)."""
+    from .io.records import record_names_match
+    from .modifiers import InvalidTemplate
+
+    parts = [
+        (is_field, text if is_field else text.encode("latin-1"))
+        for is_field, text in rename._parts
+    ]
+    plain_used = {text.split(".", 1)[-1]
+                  for is_field, text in rename._parts if is_field}
+    need_cuts = bool({"cut_prefix", "cut_suffix"} & plain_used)
+    if cut_chunks is None:
+        cut_chunks = chunks
+
+    def side_values(k, i):
+        chunk = chunks[k]
+        header = bytes(chunk.buf[chunk.head_start[i] : chunk.head_end[i]])
+        fields = header.split(None, 1)
+        values = {
+            "header": header,
+            "id": fields[0] if fields else b"",
+            "comment": fields[1] if len(fields) == 2 else b"",
+        }
+        if "match_sequence" in plain_used:
+            has, a, b = geometry_pair[k]
+            ss0 = int(chunk.seq_start[i])
+            values["match_sequence"] = (
+                bytes(chunk.buf[ss0 + a[i] : ss0 + b[i]]) if has[i] else b""
+            )
+        if "adapter_name" in plain_used:
+            g = int(gids_pair[k][i])
+            values["adapter_name"] = (
+                names_pair[k][g].encode("latin-1") if g >= 0
+                else b"no_adapter"
+            )
+        if need_cuts:
+            values["cut_prefix"], values["cut_suffix"] = _cut_bytes(
+                cut_chunks[k], i, cuts_pair[k]
+            )
+        return values
+
+    new_heads = ([], [])
+    for i in range(chunks[0].n_records):
+        sides = (side_values(0, i), side_values(1, i))
+
+        def render(rn):
+            out = []
+            for is_field, text in parts:
+                if not is_field:
+                    out.append(text)
+                    continue
+                prefix, dot, key = text.partition(".")
+                if dot and prefix in ("r1", "r2"):
+                    out.append(sides[0 if prefix == "r1" else 1][key])
+                elif text == "rn":
+                    out.append(str(rn).encode())
+                else:
+                    out.append(sides[rn - 1][text])
+            return b"".join(out)
+
+        name1, name2 = render(1), render(2)
+        if not record_names_match(name1.decode("latin-1"),
+                                  name2.decode("latin-1")):
+            new_id1, new_id2 = (
+                n.split(None, 1)[0].decode("latin-1") if n else ""
+                for n in (name1, name2)
+            )
+            raise InvalidTemplate(
+                "After renaming R1 and R2, their IDs are no longer "
+                f"identical: '{new_id1}' != '{new_id2}'. "
+                f"Original read ID: '{sides[0]['id'].decode('latin-1')}'. "
+            )
+        new_heads[0].append(name1)
+        new_heads[1].append(name2)
+    return (_with_headers(chunks[0], new_heads[0]),
+            _with_headers(chunks[1], new_heads[1]))
+
+
 def _input_format(infile) -> Optional[str]:
     """'fastq' / 'fasta' / 'bam' when the batch path can parse this
     input."""
@@ -649,11 +1138,12 @@ def _input_format(infile) -> Optional[str]:
 
 
 def _setup_device(*sides, extra_tasks=()):
-    """Build one engine for each (stages, filters) of ``sides``, all on
-    one device: CUTADAPT_TPU_TORCH_DEVICE, unset meaning CUDA. On CUDA,
-    pin the device index, then warm every engine, which builds the
-    kernel library once, before any drive thread starts, and launches
-    each lane of each kernel task once; ``extra_tasks`` are tasks that
+    """Build one engine for each (stages, filters[, engine keywords]) of
+    ``sides``, all on one device: CUTADAPT_TPU_TORCH_DEVICE, unset
+    meaning CUDA. On CUDA, pin the device index, then warm every engine,
+    which builds the kernel library once, before any drive thread
+    starts, and launches each lane of each kernel task once (wide where
+    the engine wants adapter-side coordinates); ``extra_tasks`` are tasks that
     run outside the engines' stages (--pair-adapters, paired --revcomp).
     Failures raise DeviceError; there is no fallback to the host path
     from here."""
@@ -668,8 +1158,9 @@ def _setup_device(*sides, extra_tasks=()):
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         engines = [
-            BatchPipelineEngine(stages, filters, device=device)
-            for stages, filters in sides
+            BatchPipelineEngine(side[0], side[1], device=device,
+                                **(side[2] if len(side) > 2 else {}))
+            for side in sides
         ]
         if device.type == "cuda":
             with torch.cuda.device(device):
@@ -734,34 +1225,90 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
         return _fallback(str(e))
     stages, filters = translated.stages, translated.filters
     cutter, sink = translated.cutter, translated.sink
+    rename, side = translated.rename, translated.side
+    name_edits, zero_cap = translated.name_edits, translated.zero_cap
     RUN_TIMES.update(start=time.perf_counter(), device_ready=None,
                      first_submit=None)
-    engine, = _setup_device((stages, filters))
+    engine, = _setup_device((stages, filters, dict(
+        want_ref_coords=side["wildcard"] is not None,
+        qual_cap_base=zero_cap,
+    )))
     RUN_TIMES["device_ready"] = time.perf_counter()
 
+    from .batch_pipeline import CutStage
     from .io.chunks import (
         assemble_fasta_transform,
         assemble_fasta_window,
         parse_bam_chunk,
         parse_fasta_chunk,
         parse_fastq_chunk,
+        zero_cap_chunk,
     )
     from .io.fastq import FastaWriter, read_chunks
+    from .steps import Demultiplexer
 
     def out_of(writer):
         """(file, writes_fasta) for one record writer."""
         return (writer._file, isinstance(writer, FastaWriter))
 
-    out_file, out_fasta = out_of(sink.writer)
+    demux = sink if isinstance(sink, Demultiplexer) else None
+    out_file, out_fasta = (None, False) if demux else out_of(sink.writer)
     filter_files = [
         out_of(f.step._writer) if f.step._writer is not None else None
         for f in filters
     ]
+    adapter_stage = next(
+        (s for s in stages if hasattr(s, "flat_adapters")), None
+    )
+    if demux is not None:
+        # flattened adapter id -> output file
+        demux_files = [
+            out_of(demux._writers[a.name]) for a in adapter_stage.flat_adapters
+        ]
+        untrimmed_file = (
+            out_of(demux._untrimmed_writer)
+            if demux._untrimmed_writer is not None else None
+        )
     n = 0
     total_bp = 0
     assemble = _stages_assembler(stages)
     transform_mode = _TRANSFORM_MODES.get(_transform_action(stages))
     rc_stage = _revcomp_stage(stages)
+    edits = rename is not None or bool(name_edits)
+    # after --revcomp, name edits, --zero-cap, side files and the
+    # mask/lowercase transforms read each read in its chosen orientation
+    # (the host's modifier order): emit selects it once per chunk
+    rc_select = rc_stage is not None and (
+        edits or zero_cap is not None or any(side.values())
+        or transform_mode is not None
+    )
+    rename_names = (
+        [a.name for a in adapter_stage.flat_adapters]
+        if adapter_stage is not None else []
+    )
+    rename_cuts = [s.length for s in stages if isinstance(s, CutStage)]
+
+    def select(chunk, stats):
+        stats["rc_selected"] = True
+        return _select_rc_chunk(chunk, stats, rc_stage.suffix)
+
+    def editor(chunk, stats, ws, we, parsed):
+        return _make_name_editor(name_edits, rename, chunk, stats,
+                                 rename_names, rename_cuts, ws, we,
+                                 cut_chunk=parsed)
+
+    if edits and any(f.kind == "casava_filtered" for f in filters):
+        # the host runs the modifiers before the steps: the casava filter
+        # reads the edited headers (of the chosen orientation, with its
+        # rc suffix), so the engine edits before its filters and emit
+        # takes the edited chunk from the stats
+        def pre_filter_edit(chunk, stats, ws, we):
+            parsed = chunk
+            if "is_rc" in stats:
+                chunk = select(chunk, stats)
+            return _edit_headers(chunk, editor(chunk, stats, ws, we, parsed))
+
+        engine.pre_filter_edit = pre_filter_edit
 
     def render(chunk, ws, we, mask, stats, writes_fasta):
         if writes_fasta:
@@ -772,8 +1319,8 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
                 )
             if rc_stage is not None and not stats.get("rc_selected"):
                 # each read's chosen orientation with the rc name
-                # suffix, built once per chunk (filter outputs render
-                # the same chunk)
+                # suffix, built once per chunk (filter and demultiplexed
+                # outputs render the same chunk)
                 sel = stats.get("rc_fasta_selected")
                 if sel is None:
                     sel = _select_rc_chunk(chunk, stats, rc_stage.suffix)
@@ -790,15 +1337,47 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
     def emit(pending):
         nonlocal n, total_bp
         ws, we, keep, stats = engine.collect(pending)
-        chunk = pending.parsed
-        if (rc_stage is not None and transform_mode is not None
-                and "is_rc" in stats):
-            # mask/lowercase under --revcomp: select each read's
-            # orientation first; the remainder's read-relative
-            # coordinates hold against the selected chunk
-            chunk = _select_rc_chunk(chunk, stats, rc_stage.suffix)
-            stats["rc_selected"] = True
-        out_file.write(render(chunk, ws, we, keep, stats, out_fasta))
+        chunk = stats.pop("edited_chunk", None)
+        if chunk is None:
+            chunk = pending.parsed
+            if rc_select and "is_rc" in stats:
+                chunk = select(chunk, stats)
+            if edits:
+                chunk = _edit_headers(
+                    chunk, editor(chunk, stats, ws, we, pending.parsed)
+                )
+        precap = chunk
+        if zero_cap is not None:
+            chunk = zero_cap_chunk(chunk, zero_cap)
+        if any(side.values()):
+            _emit_side_files(
+                side["rest"], side["info"], side["wildcard"], chunk, stats,
+                adapter_stage, ws, we, precap_chunk=precap,
+                rc_flags=stats.get("is_rc") if rc_stage is not None else None,
+            )
+        written_lengths = None
+        if demux is None:
+            out_file.write(render(chunk, ws, we, keep, stats, out_fasta))
+            written_lengths = sink._statistics
+        else:
+            gids = stats["last_adapter_gid"]
+            # adapters sharing a name share a file: merge their masks so
+            # each file keeps the input order
+            per_file = {}
+            for gid, out in enumerate(demux_files):
+                _merge_route(per_file, out[0], out, keep & (gids == gid))
+            untrimmed = keep & (gids == -1)
+            if untrimmed_file is not None:
+                _merge_route(per_file, untrimmed_file[0], untrimmed_file,
+                             untrimmed)
+            else:
+                _record_filtered(demux, untrimmed)
+            lens_out = we - ws
+            for (ff, writes_fasta), mask in per_file.values():
+                if mask.any():
+                    ff.write(render(chunk, ws, we, mask, stats, writes_fasta))
+                    _record_written(demux._statistics, 1,
+                                    values=lens_out[mask])
         # routed filter outputs (--too-short-output etc.): records a
         # filter dropped, in input order, with their state at drop time
         for out, newly in zip(filter_files, stats["filter_dropped_masks"]):
@@ -806,7 +1385,7 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
                 out[0].write(render(chunk, ws, we, newly, stats, out[1]))
         for f, count in zip(filters, stats["filter_counts"]):
             f.step._filtered += count
-        total_bp += _apply_side_stats(stats, stages, cutter, sink._statistics)
+        total_bp += _apply_side_stats(stats, stages, cutter, written_lengths)
         n += stats["n"]
         if progress is not None:
             progress.update(stats["n"])
@@ -824,9 +1403,15 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
         # qualities may be absent per record (0xFF); that is an error
         # exactly when some output actually needs them
         fasta_outputs = [f[1] for f in filter_files if f is not None]
-        fasta_outputs.append(out_fasta)
+        if demux is None:
+            fasta_outputs.append(out_fasta)
+        else:
+            fasta_outputs += [writes for _, writes in demux_files]
+            if untrimmed_file is not None:
+                fasta_outputs.append(untrimmed_file[1])
+        quals_required = not all(fasta_outputs) or side["info"] is not None
         chunks_iter = (
-            parse_bam_chunk(data, not all(fasta_outputs))
+            parse_bam_chunk(data, quals_required)
             for data in read_chunks(infile, _chunk_bytes())
         )
     else:
@@ -834,25 +1419,26 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
             parse_fastq_chunk(data)
             for data in read_chunks(infile, _chunk_bytes())
         )
-    try:
-        _pipelined_drive(
-            chunks_iter, _on_device(submit, engine.device),
-            _on_device(emit, engine.device),
-        )
-    except NotImplementedError as e:
-        # data-dependent limits of the engine (reads of 2**14 bp or
-        # more): the output is partly written, so the run cannot move
-        # to the host path now
-        raise DeviceError(
-            f"the GPU engine cannot finish this input: {e}; run with "
-            "CUTADAPT_TPU_TORCH_BATCH=0 to take the host path"
-        ) from e
+    _pipelined_drive(
+        chunks_iter, _on_device(submit, engine.device),
+        _on_device(emit, engine.device),
+    )
     infiles.close()
     if progress is not None:
         progress.close()
     return Statistics().collect(
         n, total_bp, None, pipeline._modifiers, pipeline._steps
     )
+
+
+def _merge_route(per_file, fh, out, mask):
+    """Add ``mask`` to the route of file ``fh`` (routes that share one
+    output file write one merged, input-ordered batch)."""
+    key = id(fh)
+    if key in per_file:
+        per_file[key] = (per_file[key][0], per_file[key][1] | mask)
+    else:
+        per_file[key] = (out, mask)
 
 
 # --- paired-end --------------------------------------------------------------
@@ -870,6 +1456,10 @@ class PairedTranslation:
     pair_stage: object  # --pair-adapters: (tasks1, tasks2, modifier)
     rc_pair: object  # paired --revcomp: (stage1, stage2, modifier)
     post_stages: list  # host stages after the revcomp swap, per slot
+    rename: object  # trailing PairedEndRenamer, if any
+    side_edits: list  # trailing name-edit ops, per side
+    zero_caps: list  # ZeroCapper quality base or None, per side
+    side: dict  # side files: rest/info/wildcard (R1), info2 (R2)
 
 
 def _translate_paired(pipeline, interleaved=False, fasta=False):
@@ -877,8 +1467,9 @@ def _translate_paired(pipeline, interleaved=False, fasta=False):
     filters and the paired adapter constructs, or raise _Refused. With
     FASTA input, outputs must be FASTA too and quality-reading stages
     and filters keep the run on the host path, which owns those errors.
-    Demultiplexing, side files, --rename and the name edits are not
-    ported yet."""
+    Trailing per-side name edits and --zero-cap, a trailing --rename,
+    the side files and paired or combinatorial demultiplexing ride
+    along."""
     from . import native
     from .batch_pipeline import (
         AdapterStage, AdapterTask, NEndStage, NextseqStage, PolyAStage,
@@ -889,7 +1480,7 @@ def _translate_paired(pipeline, interleaved=False, fasta=False):
         PairedSequenceWriter,
     )
     from .modifiers import (
-        PairedAdapterCutter, PairedEndModifierWrapper,
+        PairedAdapterCutter, PairedEndModifierWrapper, PairedEndRenamer,
         PairedReverseComplementer,
     )
     from .steps import (
@@ -916,12 +1507,18 @@ def _translate_paired(pipeline, interleaved=False, fasta=False):
                     f"does not assemble{' from FASTA input' if fasta else ''}"
                 )
 
+    modifiers = list(pipeline._modifiers)
+    rename = None
+    if modifiers and type(modifiers[-1]) is PairedEndRenamer:
+        rename = modifiers.pop()
     stages1, stages2 = [], []
     cutters = [None, None]
     pair_stage = None
     rc_pair = None
     post_stages = [[], []]
-    for mod in pipeline._modifiers:
+    side_edits = [[], []]
+    zero_caps = [None, None]
+    for mod in modifiers:
         if pair_stage is not None:
             raise _Refused(
                 f"modifier {type(mod).__name__} after --pair-adapters has "
@@ -981,6 +1578,17 @@ def _translate_paired(pipeline, interleaved=False, fasta=False):
         for side, m in enumerate((mod._modifier1, mod._modifier2)):
             if m is None:
                 continue
+            _, edits, zero_cap = _split_edits([m])
+            if edits or zero_cap is not None:
+                side_edits[side] += edits
+                if zero_cap is not None:
+                    zero_caps[side] = zero_cap
+                continue
+            if side_edits[side] or zero_caps[side] is not None:
+                raise _Refused(
+                    f"modifier {type(m).__name__} after a name or quality "
+                    "edit has no engine form"
+                )
             stage, stage_cutter = _translate_modifier(
                 m, cutters[side] is not None or rc_pair is not None
             )
@@ -1004,31 +1612,90 @@ def _translate_paired(pipeline, interleaved=False, fasta=False):
     for st in (stages1, stages2):
         _check_last_stage(st)
     if fasta:
-        if any(isinstance(s, (QualityStage, NextseqStage))
-               for st in (stages1, stages2, *post_stages) for s in st):
-            raise _Refused("quality trimming of FASTA input has no engine "
-                           "form")
+        if any(z is not None for z in zero_caps) or any(
+            isinstance(s, (QualityStage, NextseqStage))
+            for st in (stages1, stages2, *post_stages) for s in st
+        ):
+            raise _Refused("quality trimming or capping of FASTA input has "
+                           "no engine form")
         for st in (stages1, stages2):
             rc_st = _revcomp_stage(st)
             if rc_st is not None:
                 # FASTA chunks alias quality offsets to the sequence
                 rc_st.has_quals = False
 
+    linked1 = _has_linked(stages1) or (
+        rc_pair is not None and rc_pair[0] is not None
+        and _has_linked([rc_pair[0]])
+    )
     pair_filters = []
     sink = None
+    side = {"rest": None, "info": None, "wildcard": None, "info2": None}
     for step in pipeline._steps:
+        if sink is not None:
+            raise _Refused(f"step {type(step).__name__} after the sink")
         inner = step._step if isinstance(step, PairedSingleEndStep) else None
         if isinstance(step, PairedInfoFileWriter) or isinstance(
             inner, (RestFileWriter, InfoFileWriter, WildcardFileWriter)
         ):
-            name = type(step if inner is None else inner).__name__
-            raise _Refused(f"side files ({name}) are not ported to the GPU "
-                           "engine yet")
+            # R1's match events (and R2's for a paired --info-file), before
+            # any filter (the reference's step order); under paired
+            # --revcomp emit reproduces the reference's info rows, which
+            # walk the physical side's read (_rc_walk_chunk)
+            if pair_filters:
+                raise _Refused("a side file after a filter has no engine "
+                               "form")
+            info = isinstance(step, PairedInfoFileWriter) or isinstance(
+                inner, InfoFileWriter
+            )
+            if linked1 and not info:
+                # the reference's rest()/wildcards() have no linked form
+                raise _Refused("--rest-file or --wildcard-file with linked "
+                               "adapters has no engine form")
+            if info and fasta:
+                raise _Refused("--info-file of FASTA input has no engine "
+                               "form (its rows hold qualities)")
+            if isinstance(step, PairedInfoFileWriter):
+                keys = (("info", step._info_writer1._file),
+                        ("info2", step._info_writer2._file))
+            else:
+                key = {InfoFileWriter: "info", WildcardFileWriter: "wildcard",
+                       RestFileWriter: "rest"}[type(inner)]
+                keys = ((key, inner._file),)
+            for key, fh in keys:
+                if side[key] is not None or (key == "info"
+                                             and side["info2"] is not None):
+                    raise _Refused("a second side file of one kind has no "
+                                   "engine form")
+                side[key] = fh
+            continue
         if isinstance(step, (PairedDemultiplexer, CombinatorialDemultiplexer)):
-            raise _Refused(f"demultiplexing ({type(step).__name__}) is not "
-                           "ported to the GPU engine yet")
-        if sink is not None:
-            raise _Refused(f"step {type(step).__name__} after the sink")
+            if interleaved:
+                raise _Refused("demultiplexing of interleaved input has no "
+                               "engine form")
+            # routing needs matches: R1's for paired demultiplexing (the
+            # winning pair with --pair-adapters, the chosen orientation
+            # with paired --revcomp), both sides' for combinatorial
+            if isinstance(step, CombinatorialDemultiplexer):
+                if pair_stage is not None:
+                    ok = False
+                elif rc_pair is not None:
+                    ok = rc_pair[0] is not None and rc_pair[1] is not None
+                else:
+                    ok = cutters[0] is not None and cutters[1] is not None
+            else:
+                ok = (cutters[0] is not None or pair_stage is not None
+                      or (rc_pair is not None and rc_pair[0] is not None))
+            if not ok:
+                raise _Refused(f"{type(step).__name__} without the adapter "
+                               "stages it routes by has no engine form")
+            for w in step._writers.values():
+                check_writer(w, "a demultiplexed output")
+            untrimmed = getattr(step, "_untrimmed_writer", None)
+            if untrimmed is not None:
+                check_writer(untrimmed, "the untrimmed output")
+            sink = step
+            continue
         if isinstance(step, PairedEndSink):
             check_writer(step.writer, "the output")
             sink = step
@@ -1054,9 +1721,18 @@ def _translate_paired(pipeline, interleaved=False, fasta=False):
         pair_filters.append((step, t1, t2, step._pair_filter_mode))
     if sink is None:
         raise _Refused("the pipeline ends without a sink")
+    if rename is not None:
+        scan = [stages1, stages2]
+        if rc_pair is not None:
+            scan.append([s for s in rc_pair[:2] if s is not None])
+        _check_rename(
+            {text.split(".", 1)[-1]
+             for is_field, text in rename._parts if is_field},
+            scan,
+        )
     return PairedTranslation(
         stages1, stages2, cutters, pair_filters, sink, pair_stage, rc_pair,
-        post_stages,
+        post_stages, rename, side_edits, zero_caps, side,
     )
 
 
@@ -1095,7 +1771,9 @@ def _pair_match(engines, chunks, windows, pair_stage, stats_pair=None):
     both sides before any result is read. Mutates both sides' windows,
     credits the statistics and returns the matched mask; with
     ``stats_pair``, each side's stats get the winning pair index per
-    read (-1 where none) as last_adapter_gid."""
+    read (-1 where none) as last_adapter_gid and the winning matches as
+    adapter events (with their geometry, for the side files; the
+    adapter-side span where the side's engine wants it)."""
     tasks_by_side, mod = pair_stage[:2], pair_stage[2]
     n = chunks[0].n_records
     n_pairs = len(tasks_by_side[0])
@@ -1115,24 +1793,27 @@ def _pair_match(engines, chunks, windows, pair_stage, stats_pair=None):
             )
     results = [[None] * n_pairs, [None] * n_pairs]
     for side in (0, 1):
+        ref = engines[side].want_ref_coords
         for t in range(n_pairs):
             (sel, futures), lens = disp[side][t]
+            # found, qstart, qstop, errors, score, astart, astop
             out = [np.zeros(n, bool)] + [np.zeros(n, np.int32)
-                                         for _ in range(4)]
+                                         for _ in range(6)]
             if len(sel):
                 got = engines[side]._fetch_windows(
-                    tasks_by_side[side][t], sel, futures, lens
+                    tasks_by_side[side][t], sel, futures, lens,
+                    ref_coords=ref,
                 )
                 for arr, g in zip(out, got):
                     arr[sel] = g
-            results[side][t] = out  # found, qstart, qstop, errors, score
+            results[side][t] = out
 
     best = np.full(n, -1, np.int32)
     best_sc = np.zeros(n, np.int32)
     best_er = np.zeros(n, np.int32)
     for t in range(n_pairs):
-        f1, _, _, er1, sc1 = results[0][t]
-        f2, _, _, er2, sc2 = results[1][t]
+        f1, _, _, er1, sc1 = results[0][t][:5]
+        f2, _, _, er2, sc2 = results[1][t][:5]
         sc = sc1 + sc2
         er = er1 + er2
         better = (f1 & f2) & (
@@ -1155,10 +1836,20 @@ def _pair_match(engines, chunks, windows, pair_stage, stats_pair=None):
             if len(hit) == 0:
                 continue
             task = tasks_by_side[side][t]
-            _, qs, qe, er, _ = results[side][t]
+            _, qs, qe, er, _, as_a, ae_a = results[side][t]
+            ws_ev, we_ev = ws[hit].copy(), we[hit].copy()
             as_front, removed, adj_rel = _apply_match_windows(
                 task, mod.action, ws, we, hit, qs[hit], qe[hit]
             )
+            if stats_pair is not None:
+                stats_pair[side].setdefault("adapter_events", []).append(
+                    dict(task=t, reads=hit, removed=removed, errors=er[hit],
+                         as_front=as_front,
+                         adjacent=np.zeros(len(hit), np.uint8),
+                         sub=np.zeros(len(hit), np.int32),
+                         qs=qs[hit], qe=qe[hit], ws=ws_ev, we=we_ev,
+                         astart=as_a[hit], astop=ae_a[hit])
+                )
             astats = mod.adapter_statistics[side][task.adapter]
             adjacent = np.where(
                 ~as_front & (qs[hit] > 0),
@@ -1247,7 +1938,50 @@ def _select_rc_chunk(chunk, stats, suffix):
     )
 
 
-def _run_rc_pair(engines, rc_pair, chunks, windows):
+def _rc_walk_chunk(parsed, use_rc):
+    """The info rows' walk buffer under paired --revcomp: the reference's
+    InfoFileWriter slices ``info.original_read.reverse_complement()``
+    for rc-chosen pairs (reference steps.py:233-247), the physical
+    side's parsed read, reverse-complemented with its qualities
+    reversed, though the match coordinates came from the swapped
+    partner. Forward-chosen reads keep their bytes; offsets are
+    shared with ``parsed``."""
+    if not use_rc.any():
+        return parsed
+    from . import native
+    from .batch_pipeline import _complement_table
+    from .io.chunks import ParsedChunk
+
+    buf = parsed.buf.copy()
+    idx = np.flatnonzero(use_rc)
+    native.reverse_complement_records(
+        buf, parsed.seq_start[idx], parsed.seq_len[idx],
+        parsed.qual_start[idx], _complement_table(),
+    )
+    return ParsedChunk(
+        buf, parsed.head_start, parsed.head_end, parsed.seq_start,
+        parsed.seq_len, parsed.qual_start, has_cr=parsed.has_cr,
+    )
+
+
+def _filter_events(events, mask):
+    """The event rows of the reads where ``mask`` holds (one slot's
+    chosen orientation under paired --revcomp); scalar fields pass
+    through."""
+    out = []
+    for ev in events:
+        sel = mask[ev["reads"]]
+        if not sel.any():
+            continue
+        n = len(ev["reads"])
+        out.append({
+            k: (v[sel] if isinstance(v, np.ndarray) and len(v) == n else v)
+            for k, v in ev.items()
+        })
+    return out
+
+
+def _run_rc_pair(engines, rc_pair, chunks, windows, want_events=False):
     """--revcomp on paired data: match (R1 -> cutter1, R2 -> cutter2)
     and the swapped orientation (R2 -> cutter1, R1 -> cutter2), keep
     whichever scores strictly higher (PairedReverseComplementer,
@@ -1255,8 +1989,10 @@ def _run_rc_pair(engines, rc_pair, chunks, windows):
     engines[0], the second slot's on engines[1], from the drive's emit
     thread. Credits the modifiers' statistics for the winning
     orientation and returns (slot chunks, slot windows ws1, we1, ws2,
-    we2, matched masks, last-match adapter ids per slot, and the action
-    with each slot's remainder for the mask/lowercase actions)."""
+    we2, matched masks, per slot the last-match adapter ids and match
+    geometry, the action with each slot's remainder for the
+    mask/lowercase actions, and with ``want_events`` each slot's chosen
+    match events and the per-pair is_rc flags, for the side files)."""
     stage1, stage2, mod = rc_pair
     c1, c2 = chunks
     (ws1, we1), (ws2, we2) = windows
@@ -1342,13 +2078,39 @@ def _run_rc_pair(engines, rc_pair, chunks, windows):
         we = np.where(use_rc, entry_swapped[1], entry_straight[1])
         return ws, we, (t_ws, t_we)
 
+    def slot_extras(straight, swapped):
+        """The chosen orientation's last-match adapter ids and match
+        geometry of one slot (demultiplexing, {adapter_name},
+        {match_sequence}): relative coordinates hold against the slot
+        chunk, which carries the bytes the chosen run searched."""
+        has = np.zeros(B, bool)
+        a = np.zeros(B, np.int32)
+        b = np.zeros(B, np.int32)
+        for result, mask in ((straight, ~use_rc), (swapped, use_rc)):
+            for ev in result[1]:
+                sel = mask[ev["reads"]]
+                r = ev["reads"][sel]
+                has[r] = True
+                a[r] = (ev["ws"] + ev["qs"])[sel]
+                b[r] = (ev["ws"] + ev["qe"])[sel]
+        return np.where(use_rc, swapped[5], straight[5]), (has, a, b)
+
     o_ws1, o_we1, rem1 = slot_windows(a1, b1, (ws1, we1), (ws2, we2))
     o_ws2, o_we2, rem2 = slot_windows(a2, b2, (ws2, we2), (ws1, we1))
+    side_events = None
+    if want_events:
+        # a read's rows come from one orientation's run, so the two
+        # filtered lists keep each read's matches in round order
+        side_events = (
+            _filter_events(a1[1], ~use_rc) + _filter_events(b1[1], use_rc),
+            _filter_events(a2[1], ~use_rc) + _filter_events(b2[1], use_rc),
+            use_rc,
+        )
     return (
         slot1, slot2, o_ws1, o_we1, o_ws2, o_we2,
         np.where(use_rc, b1[0], a1[0]), np.where(use_rc, b2[0], a2[0]),
-        np.where(use_rc, b1[5], a1[5]), np.where(use_rc, b2[5], a2[5]),
-        (action, rem1, rem2),
+        slot_extras(a1, b1), slot_extras(a2, b2),
+        (action, rem1, rem2), side_events,
     )
 
 
@@ -1388,6 +2150,84 @@ def _make_side_render(stages_s, assemble_s, writes_fasta):
         return assemble_fasta_window(c, ws, we, m)
 
     return render
+
+
+def _paired_demux_router(demux, stages1, stages2, pair_stage=None,
+                         rc_pair=None):
+    """The routing of paired and combinatorial demultiplexing (reference
+    steps.py:422-580): R1's last match routes a PairedDemultiplexer
+    (with --pair-adapters the winning pair's R1 adapter, under paired
+    --revcomp the chosen orientation's match), the (R1, R2) pair of
+    matches a CombinatorialDemultiplexer. Routes that share a writer
+    write one merged batch, so every file keeps the input order."""
+    from .io.fastq import FastaWriter
+    from .steps import CombinatorialDemultiplexer
+
+    def names_of(stages, rc_stage):
+        if rc_stage is not None:
+            return [a.name for a in rc_stage.flat_adapters]
+        stage = next(s for s in stages if hasattr(s, "flat_adapters"))
+        return [a.name for a in stage.flat_adapters]
+
+    if pair_stage is not None:
+        names1 = [t.adapter.name for t in pair_stage[0]]
+    else:
+        names1 = names_of(stages1, rc_pair and rc_pair[0])
+    combinatorial = isinstance(demux, CombinatorialDemultiplexer)
+    if combinatorial:
+        names2 = names_of(stages2, rc_pair and rc_pair[1])
+    asm = (_stages_assembler(stages1), _stages_assembler(stages2))
+    renders = {}
+
+    def render_for(w, side):
+        r = renders.get(id(w))
+        if r is None:
+            r = _make_side_render((stages1, stages2)[side], asm[side],
+                                  isinstance(w, FastaWriter))
+            renders[id(w)] = r
+        return r
+
+    def write_pair(writer, cs, windows, mask, stats_pair):
+        for side, w in enumerate((writer._writer1, writer._writer2)):
+            ws, we = windows[side]
+            w._file.write(render_for(w, side)(cs[side], ws, we, mask,
+                                              stats_pair[side]))
+            _record_written(demux._statistics, side + 1,
+                            values=(we - ws)[mask])
+
+    def route(cs, windows, keep, stats_pair):
+        g1 = stats_pair[0]["last_adapter_gid"]
+        per_writer = {}
+        if not combinatorial:
+            for gid, name in enumerate(names1):
+                w = demux._writers[name]
+                _merge_route(per_writer, w, w, keep & (g1 == gid))
+        else:
+            g2 = stats_pair[1]["last_adapter_gid"]
+            span = len(names2) + 1
+            codes = (g1.astype(np.int64) + 1) * span + (g2 + 1)
+            for code in np.unique(codes[keep]):
+                a1, a2 = int(code) // span - 1, int(code) % span - 1
+                w = demux._writers.get((
+                    names1[a1] if a1 >= 0 else None,
+                    names2[a2] if a2 >= 0 else None,
+                ))
+                if w is not None:  # unknown combinations are dropped
+                    _merge_route(per_writer, w, w, keep & (codes == code))
+        for writer, mask in per_writer.values():
+            if mask.any():
+                write_pair(writer, cs, windows, mask, stats_pair)
+        if combinatorial:
+            return
+        untrimmed = keep & (g1 == -1)
+        if demux._untrimmed_writer is not None:
+            if untrimmed.any():
+                write_pair(demux._untrimmed_writer, cs, windows, untrimmed,
+                           stats_pair)
+        else:
+            _record_filtered(demux, untrimmed)
+
+    return route
 
 
 def _pair_condition(t, chunk, ws, we, lengths, matched, stats):
@@ -1500,6 +2340,8 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
     cutters, pair_filters = translated.cutters, translated.pair_filters
     sink, pair_stage = translated.sink, translated.pair_stage
     rc_pair, post_stages = translated.rc_pair, translated.post_stages
+    rename, side_edits = translated.rename, translated.side_edits
+    zero_caps, side_files = translated.zero_caps, translated.side
     extra_tasks = []
     if pair_stage is not None:
         extra_tasks = pair_stage[0] + pair_stage[1]
@@ -1511,18 +2353,51 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
     # two engines, one per side, on one device; the pair filters run in
     # emit, so neither engine filters
     engine1, engine2 = _setup_device(
-        (stages1, ()), (stages2, ()), extra_tasks=extra_tasks
+        (stages1, (), dict(
+            want_ref_coords=side_files["wildcard"] is not None)),
+        (stages2, ()), extra_tasks=extra_tasks,
     )
     RUN_TIMES["device_ready"] = time.perf_counter()
 
+    from types import SimpleNamespace
+
+    from .batch_pipeline import CutStage
     from .io.chunks import (
         assemble_fasta_transform, assemble_fasta_window, assemble_window,
-        parse_fasta_chunk, parse_fastq_chunk,
+        parse_fasta_chunk, parse_fastq_chunk, zero_cap_chunk,
     )
     from .io.fastq import (
         FastaWriter, InterleavedSequenceWriter, read_paired_chunks,
     )
     from .io.records import FileFormatError, record_names_match
+    from .steps import CombinatorialDemultiplexer, PairedDemultiplexer
+
+    # the adapter stage of each side, by which the side-file rows, the
+    # name edits and --rename resolve a match's task and adapter
+    if pair_stage is not None:
+        # --pair-adapters: gids are winning pair indices
+        side_stages = [SimpleNamespace(
+            tasks=pair_stage[k],
+            flat_adapters=[t.adapter for t in pair_stage[k]],
+        ) for k in (0, 1)]
+    elif rc_pair is not None:
+        side_stages = list(rc_pair[:2])
+    else:
+        side_stages = [
+            next((x for x in st if hasattr(x, "flat_adapters")), None)
+            for st in (stages1, stages2)
+        ]
+    rename_names = [
+        [a.name for a in st.flat_adapters] if st is not None else []
+        for st in side_stages
+    ]
+    rename_cuts = [
+        [x.length for x in st if isinstance(x, CutStage)]
+        for st in (stages1, stages2)
+    ]
+    demux = sink if isinstance(
+        sink, (PairedDemultiplexer, CombinatorialDemultiplexer)
+    ) else None
 
     assemble1 = _stages_assembler(stages1)
     assemble2 = _stages_assembler(stages2)
@@ -1542,7 +2417,10 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
 
     inter_out = None
     inter_fasta = False
-    if isinstance(sink.writer, InterleavedSequenceWriter):
+    if demux is not None:
+        router = _paired_demux_router(demux, stages1, stages2, pair_stage,
+                                      rc_pair)
+    elif isinstance(sink.writer, InterleavedSequenceWriter):
         inter_out = sink.writer._writer._file
         inter_fasta = isinstance(sink.writer._writer, FastaWriter)
     else:
@@ -1643,6 +2521,7 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
             if rc_st is not None and "is_rc" in st:
                 c[side] = _select_rc_chunk(c[side], st, rc_st.suffix)
                 st["rc_selected"] = True
+                st["side_rc_flags"] = st["is_rc"]
         c1, c2 = c
         m1 = stats1["matched_mask"]
         m2 = stats2["matched_mask"]
@@ -1652,13 +2531,32 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
                 pair_stage, stats_pair=(stats1, stats2),
             )
         elif rc_pair is not None:
-            (c1, c2, ws1, we1, ws2, we2, m1, m2, gid1, gid2,
-             (rc_action, rem1, rem2)) = _run_rc_pair(
+            (c1, c2, ws1, we1, ws2, we2, m1, m2, (gid1, geom1),
+             (gid2, geom2), (rc_action, rem1, rem2),
+             rc_events) = _run_rc_pair(
                 (engine1, engine2), rc_pair, (c1, c2),
                 ((ws1, we1), (ws2, we2)),
+                want_events=any(side_files.values()),
             )
+            if rc_events is not None:
+                # side-file rows come from the chosen orientation's
+                # matches; the info rows walk the physical sides' parsed
+                # reads, reverse-complemented where rc won (the
+                # reference's steps.py:233-247)
+                stats1["adapter_events"], stats2["adapter_events"] = (
+                    rc_events[:2]
+                )
+                for key, st, pend in (("info", stats1, pend1),
+                                      ("info2", stats2, pend2)):
+                    st["side_rc_flags"] = rc_events[2]
+                    if side_files[key] is not None:
+                        st["side_walk_chunk"] = _rc_walk_chunk(
+                            pend.parsed, rc_events[2]
+                        )
             stats1["last_adapter_gid"] = gid1
             stats2["last_adapter_gid"] = gid2
+            stats1["rc_pair_geometry"] = geom1
+            stats2["rc_pair_geometry"] = geom2
             if rem1 is not None and rc_action is not None:
                 # mask/lowercase: the renders and the mask N count read
                 # the remainder and the action from the stats
@@ -1671,12 +2569,60 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
             ws2, we2 = _apply_post_stages(
                 engine2, post_stages[1], c2, ws2, we2
             )
+        precap1, precap2 = c1, c2
+        if zero_caps[0] is not None:
+            c1 = zero_cap_chunk(c1, zero_caps[0])
+        if zero_caps[1] is not None:
+            c2 = zero_cap_chunk(c2, zero_caps[1])
+        stats_pair = (stats1, stats2)
+        windows = ((ws1, we1), (ws2, we2))
+        if any(side_edits):
+            c1, c2 = (
+                _edit_headers(c, _make_name_editor(
+                    side_edits[k], None, c, stats_pair[k], rename_names[k],
+                    rename_cuts[k], *windows[k],
+                )) if side_edits[k] else c
+                for k, c in enumerate((c1, c2))
+            )
+        if rename is not None:
+            c1, c2 = _paired_rename_headers(
+                (c1, c2), rename,
+                (stats1["last_adapter_gid"], stats2["last_adapter_gid"]),
+                rename_names, rename_cuts,
+                tuple(
+                    st.get("rc_pair_geometry")
+                    or _last_match_geometry(st, c1.n_records)
+                    for st in stats_pair
+                ),
+                # cut bytes come from the physical sides (the host's
+                # cutters record them before the orientation swap)
+                cut_chunks=(
+                    (pend1.parsed, pend2.parsed) if rc_pair is not None
+                    else None
+                ),
+            )
         if (inter_out is not None or any_inter_filter) and (
             full is None or c1 is not pend1.parsed or c2 is not pend2.parsed
         ):
             # the interleaved writer slices a combined chunk: rebuild it
             # when the input came as two files or a side was replaced
             full = _interleave_chunks(c1, c2)
+        if any(side_files.values()):
+            # the reference runs the side-file writers before the
+            # filters: every pair gets its rows
+            _emit_side_files(
+                side_files["rest"], side_files["info"], side_files["wildcard"],
+                c1, stats1, side_stages[0], ws1, we1, precap_chunk=precap1,
+                rc_flags=stats1.get("side_rc_flags"),
+                walk_chunk=stats1.get("side_walk_chunk"),
+            )
+            if side_files["info2"] is not None:
+                _emit_side_files(
+                    None, side_files["info2"], None, c2, stats2,
+                    side_stages[1], ws2, we2, precap_chunk=precap2,
+                    rc_flags=stats2.get("side_rc_flags"),
+                    walk_chunk=stats2.get("side_walk_chunk"),
+                )
         len1 = we1 - ws1
         len2 = we2 - ws2
         keep = np.ones(c1.n_records, bool)
@@ -1710,14 +2656,17 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
                     step.writer._writer2._file.write(
                         renders[1](c2, ws2, we2, newly, stats2))
             keep &= ~drop
-        if inter_out is not None:
-            interleave_write(inter_out, full, ws1, we1, ws2, we2, keep,
-                             inter_fasta, stats1, stats2)
+        if demux is not None:
+            router((c1, c2), ((ws1, we1), (ws2, we2)), keep, stats_pair)
         else:
-            out1.write(render1(c1, ws1, we1, keep, stats1))
-            out2.write(render2(c2, ws2, we2, keep, stats2))
-        _record_written(wl, 1, values=len1[keep])
-        _record_written(wl, 2, values=len2[keep])
+            if inter_out is not None:
+                interleave_write(inter_out, full, ws1, we1, ws2, we2, keep,
+                                 inter_fasta, stats1, stats2)
+            else:
+                out1.write(render1(c1, ws1, we1, keep, stats1))
+                out2.write(render2(c2, ws2, we2, keep, stats2))
+            _record_written(wl, 1, values=len1[keep])
+            _record_written(wl, 2, values=len2[keep])
         bp1 += _apply_side_stats(stats1, stages1, cutters[0], None)
         bp2 += _apply_side_stats(stats2, stages2, cutters[1], None)
         n += stats1["n"]
@@ -1753,16 +2702,10 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
             RUN_TIMES["first_submit"] = time.perf_counter()
         return engine1.submit(p1), engine2.submit(p2), full
 
-    try:
-        _pipelined_drive(
-            chunk_pairs(), _on_device(submit_pair, engine1.device),
-            _on_device(emit, engine1.device),
-        )
-    except NotImplementedError as e:
-        raise DeviceError(
-            f"the GPU engine cannot finish this input: {e}; run with "
-            "CUTADAPT_TPU_TORCH_BATCH=0 to take the host path"
-        ) from e
+    _pipelined_drive(
+        chunk_pairs(), _on_device(submit_pair, engine1.device),
+        _on_device(emit, engine1.device),
+    )
     infiles.close()
     if progress is not None:
         progress.close()

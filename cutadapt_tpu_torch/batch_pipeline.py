@@ -32,13 +32,18 @@ adapter stage twice, over the chunk and over a reverse-complemented
 copy that shares its offsets, and collect keeps for each read the
 orientation that scored higher.
 
+Windows of 2**14 bp or more, and every window of an engine built with
+``want_ref_coords`` (--wildcard-file needs the adapter-side span), take
+the kernel's wide result: the unpacked (7, B) int32 rows of the JAX
+engine's wide format, int32 lengths on the wire. Quality capping
+(``qual_cap_base``) and a header-edit hook (``pre_filter_edit``) run
+before the filters, in the host's step order.
+
 Not ported yet, and refused with NotImplementedError: adapters needing
-more than 16 query classes (the byte lane),
-adapter-side coordinates and windows of 2**14 bp or more (the wide
-lane), quality capping and header edits before the filters, and the
-device mesh (:func:`set_shard_mesh`). Several tasks of one stage
-dispatch one by one (the reference's shared upload is not ported; the
-results are the same).
+more than 16 query classes (the byte lane) and the device mesh
+(:func:`set_shard_mesh`). Several tasks of one stage dispatch one by
+one (the reference's shared upload is not ported; the results are the
+same).
 
 Reference semantics: modifiers at cutadapt:src/cutadapt/modifiers.py,
 selection order of MultipleAdapters.match_to at adapters.py:1265-1286.
@@ -53,13 +58,14 @@ import torch
 
 from . import native
 from .adapters import Where
-from .io.chunks import assemble_window, parse_fastq_chunk
+from .io.chunks import assemble_window, parse_fastq_chunk, zero_cap_chunk
 from .ops.align_batch import AlignerSpec, query_class_info
 from .ops.align_cuda import (
-    locate_packed, make_tables, resolve_device, unpack_result,
+    locate_packed, make_tables, resolve_device, unpack_result, unpack_wide,
 )
 
-# query coordinates in the packed result are 14-bit
+# query coordinates in the packed result are 14-bit: longer windows take
+# the wide result
 _QS_BITS = 14
 
 # Wire/work accounting (always on, one int add per dispatch): bytes
@@ -95,13 +101,19 @@ def xfer_counters() -> dict:
     return dict(XFER)
 
 
-def _wire_lengths(vals: np.ndarray, size: int,
+def _wire_lengths(vals: np.ndarray, size: int, wide: bool,
                   width: Optional[int] = None) -> np.ndarray:
-    """Window lengths as they ride the wire: int16 (windows are < 2**14
-    in the packed result format), or one byte per row on the exact-wire
+    """Window lengths as they ride the wire: int16 in the packed result
+    format (whose windows are < 2**14), int32 in the wide one (long reads
+    overflow int16 at 32,768 bp), or one byte per row on the exact-wire
     path when the batch width fits uint8. The kernel reads int32: the
     step widens them on the device."""
-    dt = np.uint8 if width is not None and width < 256 else np.int16
+    if wide:
+        dt = np.int32
+    elif width is not None and width < 256:
+        dt = np.uint8
+    else:
+        dt = np.int16
     sub_len = np.zeros(size, dt)
     sub_len[: len(vals)] = vals
     return sub_len
@@ -178,10 +190,10 @@ _KIND_INFO = {
 
 
 class DeviceResult:
-    """A packed (2, B) int32 result on its way to the host. The copy
-    into a pinned host buffer is queued on the current stream behind
-    the kernel, and a CUDA event marks its end; reading the result waits
-    on that event only."""
+    """A packed (2, B) or wide (7, B) int32 result on its way to the
+    host. The copy into a pinned host buffer is queued on the current
+    stream behind the kernel, and a CUDA event marks its end; reading
+    the result waits on that event only."""
 
     __slots__ = ("_dev", "_host", "_event")
 
@@ -472,15 +484,16 @@ class AdapterTask:
         return found, qstart, qstop, errors, score
 
     def step(self, enc: torch.Tensor, lengths: torch.Tensor,
-             device: torch.device, pack2: bool) -> DeviceResult:
+             device: torch.device, pack2: bool,
+             wide: bool = False) -> DeviceResult:
         """Upload one encoded batch (host tensors, pinned when the
-        device is CUDA), launch the aligner, and queue the result's
-        copy back."""
+        device is CUDA), launch the aligner (``wide``: the (7, B)
+        result), and queue the result's copy back."""
         if device.type == "cuda":
             enc = enc.to(device, non_blocking=True)
             lengths = lengths.to(device, non_blocking=True)
         out = locate_packed(
-            enc, lengths.to(torch.int32), self.tables, pack2
+            enc, lengths.to(torch.int32), self.tables, pack2, wide=wide
         )
         return DeviceResult(out)
 
@@ -724,7 +737,15 @@ class PendingBatch:
 class BatchPipelineEngine:
     """Runs the host stages, at most one adapter stage and the filters
     over parsed FASTQ chunks on ``device`` (None: CUDA; ``"cpu"`` runs
-    the aligner's plain PyTorch version)."""
+    the aligner's plain PyTorch version).
+
+    ``want_ref_coords``: every kernel dispatch takes the wide result, so
+    events carry the adapter-side [astart, astop) span (--wildcard-file).
+    ``qual_cap_base``: a trailing ZeroCapper's quality base; the
+    expected-error filters read capped qualities. ``pre_filter_edit``
+    (an attribute): an optional (chunk, stats, ws, we) -> chunk hook run
+    before the filters (name edits the casava filter must see); the
+    edited chunk comes back as ``stats["edited_chunk"]``."""
 
     def __init__(
         self,
@@ -738,11 +759,6 @@ class BatchPipelineEngine:
         device=None,
     ):
         self.device = resolve_device(device)
-        if qual_cap_base is not None:
-            raise NotImplementedError(
-                "quality capping before the filters (--zero-cap) is not "
-                "ported yet"
-            )
         for s in stages:
             if not isinstance(s, (AdapterStage,) + _HOST_STAGES):
                 raise NotImplementedError(
@@ -751,11 +767,9 @@ class BatchPipelineEngine:
                 )
         if sum(isinstance(s, AdapterStage) for s in stages) > 1:
             raise ValueError("at most one adapter stage is supported")
-        if want_ref_coords:
-            raise NotImplementedError(
-                "adapter-side coordinates (the wide result lane) are not "
-                "ported yet"
-            )
+        self.want_ref_coords = want_ref_coords
+        self.qual_cap_base = qual_cap_base
+        self.pre_filter_edit = None
         self.stages = list(stages)
         self.filters = list(filters)
         self.length_bucket = length_bucket
@@ -862,9 +876,12 @@ class BatchPipelineEngine:
     def warmup(self, max_len: int, tasks=None) -> None:
         """Build the kernel library and launch every lane each kernel
         task can use once, at the smallest dispatch size (both phases of
-        a linked task; comparers and indexed tasks launch nothing).
-        ``tasks`` defaults to those of the engine's adapter stage."""
+        a linked task; comparers and indexed tasks launch nothing), in
+        the wide result where reads of ``max_len`` or ``want_ref_coords``
+        need it. ``tasks`` defaults to those of the engine's adapter
+        stage."""
         width = self._bucket_length(max_len)
+        wide = self.want_ref_coords or width >= (1 << _QS_BITS)
         lanes = (True, False) if native.AVAILABLE and _pack2_on() else (False,)
         if tasks is None:
             tasks = [t for stage in self.stages
@@ -877,9 +894,11 @@ class BatchPipelineEngine:
                         np.zeros((self.min_dp_batch, w_in), np.uint8)
                     )
                     lens = self._host_tensor(
-                        np.zeros(self.min_dp_batch, np.int16)
+                        np.zeros(self.min_dp_batch,
+                                 np.int32 if wide else np.int16)
                     )
-                    t.step(enc, lens, self.device, pack2=p2).numpy()
+                    t.step(enc, lens, self.device, pack2=p2,
+                           wide=wide).numpy()
 
     def _encode(self, task, chunk, starts, lens, sel, rows, width,
                 pack2: Optional[bool]) -> torch.Tensor:
@@ -969,11 +988,12 @@ class BatchPipelineEngine:
             ).numpy()
             futures.append(("host",) + task.run_comparer(enc, c_lens))
             return sel, futures
-        if int(c_lens.max()) >= (1 << _QS_BITS):
-            raise NotImplementedError(
-                "windows of 2**14 bp or more need the wide result lane, "
-                "which is not ported yet"
-            )
+        # windows of 2**14 bp or more overflow the packed 14-bit
+        # coordinates, and adapter-side coordinates ride only the wide
+        # result: take it (JAX batch_pipeline.py:1416-1420)
+        wide = (
+            int(c_lens.max()) >= (1 << _QS_BITS) or self.want_ref_coords
+        )
         # 2-bit lane split: ACGT-class-only windows ride the 2-bit
         # encoding; the rare N/IUPAC-containing reads take the host
         # scalar aligner (zero wire) when few, or the 4-bit lane
@@ -1047,16 +1067,17 @@ class BatchPipelineEngine:
                     size, b_w, pack2=p2,
                 )
                 sub_len = self._host_tensor(_wire_lengths(
-                    c_lens[base + off : base + off + take], size,
+                    c_lens[base + off : base + off + take], size, wide,
                     width=b_w if exact else None,
                 ))
                 _xfer_add(
                     h2d=enc.numel() + sub_len.numel() * sub_len.element_size(),
                     candidates=take, dp_rows=size,
                 )
-                fut = task.step(enc, sub_len, self.device, pack2=p2)
+                fut = task.step(enc, sub_len, self.device, pack2=p2,
+                                wide=wide)
                 fut.copy_to_host_async()
-                futures.append((base + off, take, fut))
+                futures.append((base + off, take, fut, wide))
                 off += size
             if dev_count < count:
                 s0, s1 = base + dev_count, base + count
@@ -1082,8 +1103,8 @@ class BatchPipelineEngine:
         errors = np.zeros(n_cand, np.int32)
         score = np.zeros(n_cand, np.int32)
         sub = np.zeros(n_cand, np.int32)
-        # adapter-side spans: only the scalar lane reports them (the
-        # packed device result carries none)
+        # adapter-side spans: the scalar lane and the wide device result
+        # report them (the packed one carries none)
         astart = np.zeros(n_cand, np.int32)
         astop = np.zeros(n_cand, np.int32)
         for fut in futures:
@@ -1101,10 +1122,15 @@ class BatchPipelineEngine:
                 astart[off : off + count] = as_
                 astop[off : off + count] = ae
             else:
-                off, count, dev = fut
+                off, count, dev, wide = fut
                 arr = np.asarray(dev)
                 _xfer_add(d2h=arr.nbytes)
-                f, qs, qe, er, sc = unpack_result(arr[:, :count])
+                if wide:
+                    f, qs, qe, er, sc, as_, ae = unpack_wide(arr[:, :count])
+                    astart[off : off + count] = as_
+                    astop[off : off + count] = ae
+                else:
+                    f, qs, qe, er, sc = unpack_result(arr[:, :count])
             found[off : off + count] = f
             qstart[off : off + count] = qs
             qstop[off : off + count] = qe
@@ -1112,15 +1138,26 @@ class BatchPipelineEngine:
             score[off : off + count] = sc
         return found, qstart, qstop, errors, score, sub, astart, astop
 
-    def _fetch_windows(self, task, sel, futures, lens):
+    def _fetch_windows(self, task, sel, futures, lens, ref_coords=False):
         """Fetch one task's results over `sel`'s positions, with
         coordinates mirrored to forward orientation: (found, qstart,
-        qstop, errors, score)."""
-        f, qs, qe, er, sc, _, _, _ = self._fetch_task(len(sel), futures)
+        qstop, errors, score), and with ``ref_coords`` the adapter-side
+        [astart, astop) spans (the dispatches must have taken the wide
+        result: want_ref_coords), mirrored like _adapter_round's."""
+        f, qs, qe, er, sc, _, as_, ae = self._fetch_task(len(sel), futures)
         if task.reverse and not task.comparer:
             L = lens[sel]
             qs, qe = L - qe, L - qs
-        return f, qs, qe, er, sc
+            if ref_coords:
+                m_len = len(task.spec.reference)
+                as_, ae = m_len - ae, m_len - as_
+        if not ref_coords:
+            return f, qs, qe, er, sc
+        if task.comparer:
+            # anchored comparers always report the full span
+            as_ = np.zeros_like(qs)
+            ae = np.full_like(qs, len(task.cmp_ref))
+        return f, qs, qe, er, sc, as_, ae
 
     def _resolve_linked(self, task, chunk, starts, lens, front_disp, width):
         """Run the two-phase linked matching: fetch the 5' phase,
@@ -1575,6 +1612,11 @@ class BatchPipelineEngine:
             win_start, win_stop = self._apply_host_stage(
                 base_si + j, post, chunk, win_start, win_stop, stats
             )
+        # name edits run before the filter steps on the host, so a casava
+        # filter reads the edited headers
+        if self.pre_filter_edit is not None:
+            chunk = self.pre_filter_edit(chunk, stats, win_start, win_stop)
+            stats["edited_chunk"] = chunk
         # filters (first matching filter claims the read, like the host
         # step order)
         keep = np.ones(B, bool)
@@ -1585,22 +1627,31 @@ class BatchPipelineEngine:
             stats["remainder"]
             if stats.get("transform_action") == "mask" else None
         )
+        capped = {}
+
+        def cond(f, src):
+            # a trailing ZeroCapper runs before the filters on the host:
+            # the expected-error filters read capped qualities
+            if self.qual_cap_base is not None and f.kind in (
+                "too_many_expected_errors", "too_high_average_error_rate"
+            ):
+                if id(src) not in capped:
+                    capped[id(src)] = zero_cap_chunk(src, self.qual_cap_base)
+                src = capped[id(src)]
+            return filter_condition(
+                f.kind, f.threshold, src, win_start, win_stop, lengths,
+                matched_any, mask_remainder=mask_remainder,
+            )
+
         # content-reading predicates must see the chosen orientation's
         # bytes under --revcomp: evaluate on both chunks, select per
         # read (the rc copy shares all offsets, so the same windows
         # apply)
         is_rc = stats.get("is_rc")
         for f in self.filters:
-            drop = filter_condition(
-                f.kind, f.threshold, chunk, win_start, win_stop, lengths,
-                matched_any, mask_remainder=mask_remainder,
-            )
+            drop = cond(f, chunk)
             if is_rc is not None and f.kind in _CONTENT_FILTERS:
-                drop = np.where(is_rc, filter_condition(
-                    f.kind, f.threshold, stats["rc_chunk"], win_start,
-                    win_stop, lengths, matched_any,
-                    mask_remainder=mask_remainder,
-                ), drop)
+                drop = np.where(is_rc, cond(f, stats["rc_chunk"]), drop)
             newly = drop & keep
             filter_counts.append(int(newly.sum()))
             filter_dropped.append(newly)

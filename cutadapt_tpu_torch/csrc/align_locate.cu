@@ -8,6 +8,13 @@
 // first). Results are the same packed (2, B) int32 words:
 //   row 0 = query_start | query_stop << 14 | found << 28
 //   row 1 = errors | (score + 32768) << 16
+// or, in wide mode (Params::wide), the unpacked (7, B) int32 rows
+//   found, query_start, query_stop, errors, score, ref_start, ref_stop
+// of the JAX engine's wide format (cutadapt_tpu/batch_pipeline.py:
+// _make_locate_step(wide=True)): windows of 2**14 bp or more, whose
+// coordinates overflow the 14-bit fields, and adapter-side coordinates
+// (--wildcard-file). The DP keeps every coordinate in int32 either way;
+// only the final store differs, so one instantiation serves both modes.
 //
 // What bounds it: integer ALU work per DP cell. A read moves 25-50 bytes
 // in and 8 bytes out, but its DP touches (m+1) cells per active column,
@@ -51,7 +58,10 @@
 // - Groups of one warp differ in read length and in min_n. The warp runs
 //   to its longest group (a warp-wide max of columns + lanes - 1), and a
 //   lane idles at steps outside its group's columns, so the shuffles stay
-//   full-warp; a padding read of length 0 does no work.
+//   full-warp; a padding read of length 0 does no work. So a long read
+//   (30 kb) holds the other 1-3 reads of its warp for its 30k steps; the
+//   engine's length sort of each lane's candidates on CUDA puts reads of
+//   similar length in one warp.
 // - After the last column, lanes stage their rows in shared memory and the
 //   last lane runs the bottom-up final-column scan, once per read.
 // - Adapters with more than 256 DP rows use L = 32 and a runtime r, with
@@ -112,6 +122,7 @@ struct Params {
   int wildcard_ref;
   int n_minlen;     // entries of the minimum-length table (k + 2)
   int rows;         // rows per lane (kShared, kScratch)
+  int wide;         // store the unpacked (7, B) rows instead of (2, B)
 };
 
 // One DP cell's key (cost, tie = (class, pos) as one word) and payload
@@ -473,6 +484,17 @@ locate_kernel(const uint8_t* __restrict__ enc,
   }
 
   const uint32_t query_start = best_origin >= 0 ? best_origin : 0;
+  if (p.wide) {
+    const size_t B = (size_t)p.B;
+    out[b] = best_found;
+    out[B + b] = (int32_t)query_start;
+    out[2 * B + b] = best_query_stop;
+    out[3 * B + b] = best_cost;
+    out[4 * B + b] = best_score;
+    out[5 * B + b] = best_origin >= 0 ? 0 : -best_origin;
+    out[6 * B + b] = best_ref_stop;
+    return;
+  }
   out[b] = (int32_t)(query_start | ((uint32_t)best_query_stop << 14) |
                      ((uint32_t)best_found << 28));
   out[(size_t)p.B + b] =
@@ -539,7 +561,8 @@ int align_locate_threads() { return kThreads; }
 // variant (ops/align_cuda.py:kernel_layout): lanes per read, rows per
 // lane, and where a lane keeps its rows (0 registers, 1 shared memory,
 // 2 device scratch of blocks * threads * (3 * rows + 2 * mask words)
-// words). smem_bytes covers the final-column staging (registers) or the
+// words). wide: out is (7, B) unpacked rows instead of (2, B) packed
+// words. smem_bytes covers the final-column staging (registers) or the
 // rows and masks (shared memory). Returns the CUDA error code of the
 // launch (0 on success).
 int align_locate_launch(int bits, int lanes, int rows, int mode,
@@ -547,10 +570,11 @@ int align_locate_launch(int bits, int lanes, int rows, int mode,
                         const int32_t* tables, int32_t* out, int32_t* scratch,
                         int B, int Wp, int m, int k, int flags, int indel_cost,
                         int min_overlap, int eff_len, int wildcard_ref,
-                        int n_minlen, long long smem_bytes, void* stream) {
+                        int n_minlen, int wide, long long smem_bytes,
+                        void* stream) {
   const Params p = {B,          Wp,          m,       k,
                     flags,      indel_cost,  min_overlap, eff_len,
-                    wildcard_ref, n_minlen,  rows};
+                    wildcard_ref, n_minlen,  rows,    wide};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sb = (size_t)smem_bytes;
   if (rows < 1 || lanes * rows < m + 1) return (int)cudaErrorInvalidValue;

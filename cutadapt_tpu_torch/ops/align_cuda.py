@@ -11,6 +11,16 @@ the bottom-up final-column scan, returning one packed (2, B) int32:
     row 0 = query_start | query_stop << 14 | found << 28
     row 1 = errors | (score + 32768) << 16
 
+or, with ``wide=True``, the unpacked (7, B) int32 rows of the JAX
+engine's wide format (``cutadapt_tpu/batch_pipeline.py:
+_make_locate_step(wide=True)``):
+
+    found, query_start, query_stop, errors, score, ref_start, ref_stop
+
+for windows of 2**14 bp or more, whose coordinates overflow the 14-bit
+fields, and for adapter-side coordinates (--wildcard-file). The kernel
+chooses the store at run time: every variant serves both modes.
+
 Queries arrive as (B, Wp) uint8 rows of query class ids
 (:func:`query_class_info`): four 2-bit ids per byte, lowest pair first
 (``pack2=True``), or two 4-bit ids per byte, low nibble first. Bytes past
@@ -93,6 +103,10 @@ MODES = ("registers", "shared", "scratch")
 LAUNCHES = {"pack2": 0, "pack4": 0}
 # the same launches by instantiation (template_args), beside LAUNCHES
 VARIANT_LAUNCHES = {}
+# the launches of LAUNCHES that stored the wide (7, B) result, per lane
+WIDE_LAUNCHES = {"pack2": 0, "pack4": 0}
+# rows of the wide result
+WIDE_ROWS = 7
 # calls of the wrapper that ran the plain version (CPU tensors), per lane
 PLAIN_RUNS = {"pack2": 0, "pack4": 0}
 # the counters are bumped from whichever thread launches
@@ -118,11 +132,20 @@ def unpack_result(arr: np.ndarray):
     )
 
 
+def unpack_wide(arr: np.ndarray):
+    """Wide (7, B) int32 result -> (found, qstart, qstop, errors, score,
+    ref_start, ref_stop)."""
+    return (arr[0].astype(bool),) + tuple(
+        arr[i].astype(np.int32) for i in range(1, WIDE_ROWS)
+    )
+
+
 def reset_launch_counters() -> None:
     with _COUNT_LOCK:
         for lane in LAUNCHES:
             LAUNCHES[lane] = 0
             PLAIN_RUNS[lane] = 0
+            WIDE_LAUNCHES[lane] = 0
         VARIANT_LAUNCHES.clear()
 
 
@@ -188,23 +211,25 @@ def make_tables(spec: AlignerSpec) -> LocateTables:
 
 
 def locate(spec: AlignerSpec, enc, lengths, pack2: bool = True,
-           device=None) -> torch.Tensor:
+           device=None, wide: bool = False) -> torch.Tensor:
     """Align a batch of packed queries against ``spec``'s reference on
     ``device`` (None: CUDA). ``enc`` is (B, Wp) uint8 packed class ids,
     ``lengths`` (B,) integers; numpy arrays or tensors. Returns the
-    packed (2, B) int32 result on ``device``."""
+    packed (2, B) int32 result on ``device``, or the wide (7, B) one."""
     dev = resolve_device(device)
     enc_t = torch.as_tensor(np.ascontiguousarray(enc), dtype=torch.uint8)
     len_t = torch.as_tensor(np.asarray(lengths)).to(torch.int32)
     return locate_packed(
-        enc_t.to(dev), len_t.to(dev), make_tables(spec), pack2
+        enc_t.to(dev), len_t.to(dev), make_tables(spec), pack2, wide=wide
     )
 
 
 def locate_packed(enc: torch.Tensor, lengths: torch.Tensor,
-                  tables: LocateTables, pack2: bool) -> torch.Tensor:
+                  tables: LocateTables, pack2: bool,
+                  wide: bool = False) -> torch.Tensor:
     """The kernel's wrapper: launches the CUDA kernel for CUDA tensors,
-    runs :func:`locate_reference` for CPU tensors."""
+    runs :func:`locate_reference` for CPU tensors. ``wide`` selects the
+    (7, B) result."""
     if enc.dtype != torch.uint8 or enc.dim() != 2:
         raise ValueError(f"enc must be a 2-D uint8 tensor, got {enc.dtype} "
                          f"{tuple(enc.shape)}")
@@ -220,10 +245,11 @@ def locate_packed(enc: torch.Tensor, lengths: torch.Tensor,
     if enc.device.type == "cpu":
         with _COUNT_LOCK:
             PLAIN_RUNS["pack2" if pack2 else "pack4"] += 1
-        return locate_reference(enc, lengths, tables, pack2)
+        return locate_reference(enc, lengths, tables, pack2, wide=wide)
     if enc.device.type != "cuda":
         raise ValueError(f"unsupported device {enc.device}")
-    return _launch(enc.contiguous(), lengths.contiguous(), tables, pack2)
+    return _launch(enc.contiguous(), lengths.contiguous(), tables, pack2,
+                   wide)
 
 
 # --- the CUDA kernel ---------------------------------------------------------
@@ -288,7 +314,7 @@ def _library():
             lib.align_locate_threads.argtypes = []
             lib.align_locate_launch.restype = ci
             lib.align_locate_launch.argtypes = (
-                [ci] * 4 + [vp] * 5 + [ci] * 10 + [ctypes.c_longlong, vp]
+                [ci] * 4 + [vp] * 5 + [ci] * 11 + [ctypes.c_longlong, vp]
             )
             if lib.align_locate_threads() != THREADS:
                 raise RuntimeError(
@@ -358,10 +384,11 @@ def instantiations() -> frozenset:
                      for lay in lays)
 
 
-def _launch(enc, lengths, tables: LocateTables, pack2: bool):
+def _launch(enc, lengths, tables: LocateTables, pack2: bool, wide: bool):
     lib = _library()
     B, Wp = enc.shape
-    out = torch.empty((2, B), dtype=torch.int32, device=enc.device)
+    out = torch.empty((WIDE_ROWS if wide else 2, B), dtype=torch.int32,
+                      device=enc.device)
     if B == 0:
         return out
     tab = tables.on(enc.device)
@@ -381,34 +408,38 @@ def _launch(enc, lengths, tables: LocateTables, pack2: bool):
             out.data_ptr(), None if scratch is None else scratch.data_ptr(),
             B, Wp, tables.m, tables.k, int(spec.flags),
             int(spec.indel_cost), int(spec.min_overlap), tables.eff_len,
-            int(spec.wildcard_ref), tables.n_minlen, lay.smem_bytes, stream,
+            int(spec.wildcard_ref), tables.n_minlen, int(wide),
+            lay.smem_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"align_locate kernel launch failed: CUDA error {err}")
     key = template_args(2 if pack2 else 4, lay)
+    lane = "pack2" if pack2 else "pack4"
     with _COUNT_LOCK:
-        LAUNCHES["pack2" if pack2 else "pack4"] += 1
+        LAUNCHES[lane] += 1
         VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
+        if wide:
+            WIDE_LAUNCHES[lane] += 1
     return out
 
 
 # --- the plain PyTorch version -----------------------------------------------
 
 
+# The tie-break (cls, pos) of a DP cell as one int32 word: class 0 is
+# pos (in [-m, 0]), class 1 is _TIE_CLASS1 + pos (pos in [1, m] or
+# BIG_NEG = -2**28), and the class-3 filler of the ladder's shifted-in
+# rows is _TIE_FILL. The lexicographic order of (cls, pos) and the order
+# of the word are the same.
+_TIE_CLASS1 = 1 << 29
+_TIE_FILL = 1 << 30
+
+
 def _key_min(a, b):
-    """Lexicographic min over (cost, cls, pos) with payloads."""
-    ac, acls, apos = a[:3]
-    bc, bcls, bpos = b[:3]
-    a_wins = (ac < bc) | (
-        (ac == bc) & ((acls < bcls) | ((acls == bcls) & (apos <= bpos)))
-    )
-    return tuple(torch.where(a_wins, x, y) for x, y in zip(a, b))
-
-
-def _shift_down(x, d, fill):
-    """Rows shifted down by d, the top d rows set to ``fill``."""
-    top = torch.full((d, x.shape[1]), fill, dtype=x.dtype, device=x.device)
-    return torch.cat([top, x[:-d]], dim=0)
+    """Lexicographic min over (cost, tie) of stacked (4, rows, B) cells
+    [cost, tie, score, origin]: a wins on a smaller-or-equal key."""
+    a_wins = (a[0] < b[0]) | ((a[0] == b[0]) & (a[1] <= b[1]))
+    return torch.where(a_wins, a, b)
 
 
 def _to_int32_bits(v: torch.Tensor) -> torch.Tensor:
@@ -418,10 +449,23 @@ def _to_int32_bits(v: torch.Tensor) -> torch.Tensor:
 
 
 def locate_reference(enc: torch.Tensor, lengths: torch.Tensor,
-                     tables: LocateTables, pack2: bool) -> torch.Tensor:
+                     tables: LocateTables, pack2: bool,
+                     wide: bool = False) -> torch.Tensor:
     """The aligner in plain PyTorch: vectorised over the batch, a loop
     over columns, and the in-column deletion cascade as the TPU kernel's
-    (min,+) Hillis-Steele ladder cut at ceil(log2(k+2)) passes."""
+    (min,+) Hillis-Steele ladder cut at ceil(log2(k+2)) passes. Returns
+    the packed (2, B) result, or with ``wide`` the (7, B) rows."""
+    B = enc.shape[0]
+    empty = torch.nonzero(lengths == 0).flatten()
+    if len(empty) > 1:
+        # rows of length 0 (a batch's padding) share one result, whatever
+        # their bytes: compute it once, beside the other rows
+        rows = torch.cat([torch.nonzero(lengths != 0).flatten(), empty[:1]])
+        sub = locate_reference(enc[rows], lengths[rows], tables, pack2,
+                               wide=wide)
+        out = sub[:, -1:].expand(-1, B).clone()
+        out[:, rows[:-1]] = sub[:, :-1]
+        return out
     dev = enc.device
     i32 = torch.int32
     B, Wp = enc.shape
@@ -447,7 +491,6 @@ def locate_reference(enc: torch.Tensor, lengths: torch.Tensor,
     n = lengths.to(i32)[None, :]  # (1, B)
     i_col = torch.arange(R, dtype=i32, device=dev)[:, None]
     posb = torch.arange(1, m + 1, dtype=i32, device=dev)[:, None].expand(m, B)
-    zero_mb = torch.zeros((m, B), dtype=i32, device=dev)
     lane0 = torch.zeros((1, B), dtype=i32, device=dev)
 
     max_n = n if start_in_query else torch.clamp(n, max=m + k)
@@ -470,9 +513,11 @@ def locate_reference(enc: torch.Tensor, lengths: torch.Tensor,
         score = 0 * (i_col + mn)
         cost = torch.minimum(i_col, mn) * del_cost
         origin = mn - i_col
-    cost, score, origin = (
-        x.expand(R, B).to(i32).contiguous() for x in (cost, score, origin)
-    )
+    # the DP column, stacked: [cost, score, origin]
+    state = torch.stack([
+        x.expand(R, B).to(i32) for x in (cost, score, origin)
+    ]).contiguous()
+    cost, score, origin = state[0], state[1], state[2]
 
     last = lane0 + init_last
     last_filled = lane0
@@ -501,6 +546,24 @@ def locate_reference(enc: torch.Tensor, lengths: torch.Tensor,
         j0 = int(min_n.min()) + 1
     else:
         j0 = 1
+    # per-call constants of the column step
+    v0_inc = torch.tensor([ins_cost_inc, ins_score_inc, origin_increment],
+                          dtype=i32, device=dev)[:, None, None]
+    diag_tie = -posb
+    ins_tie = posb + _TIE_CLASS1
+    zero_mb = torch.zeros((m, B), dtype=i32, device=dev)
+    del_score = zero_mb + DELETION_SCORE
+    seed_tie = torch.full((1, m, B), _TIE_CLASS1 + BIG_NEG, dtype=i32,
+                          device=dev)
+    ladder = []  # (d, filler of the shifted cells, zero cascade rows)
+    d = 1
+    while d < limit:
+        fill = torch.zeros((4, d, B), dtype=i32, device=dev)
+        fill[0] = INF_COST
+        fill[1] = _TIE_FILL
+        ladder.append((d, fill, torch.zeros((2, d, B), dtype=i32,
+                                            device=dev)))
+        d *= 2
     for j in range(j0, n_cols + 1):
         q = j - 1
         qc = (enc_i[:, q // per_byte] >> ((q % per_byte) * bits)) & (
@@ -508,51 +571,36 @@ def locate_reference(enc: torch.Tensor, lengths: torch.Tensor,
         )
         active = (j > min_n) & (j <= max_n)  # (1, B)
         eq = ((rm >> qc[None, :]) & 1) != 0  # (m, B)
+        mismatch = (~eq).to(i32)
 
-        v0c = cost[0:1] + ins_cost_inc
-        v0s = score[0:1] + ins_score_inc
-        v0o = origin[0:1] + origin_increment
-        diag_c, diag_s, diag_o = cost[:-1], score[:-1], origin[:-1]
-        prev_c, prev_s, prev_o = cost[1:], score[1:], origin[1:]
-        dc = torch.where(eq, diag_c, diag_c + 1)
-        ds = torch.where(eq, diag_s + MATCH_SCORE, diag_s + MISMATCH_SCORE)
-        diag_leaf = (dc, zero_mb, -posb, ds, diag_o)
-        ins_leaf = (prev_c + ins_cost, zero_mb + 1, posb,
-                    prev_s + INSERTION_SCORE, prev_o)
-        k_leaf = _key_min(diag_leaf, ins_leaf)
-        kk = tuple(torch.where(eq, d, o) for d, o in zip(diag_leaf, k_leaf))
-        cc_cost = torch.where(eq, INF_COST, del_cost).to(i32)
-        cc_score = torch.full_like(cc_cost, DELETION_SCORE)
-
-        d = 1
-        while d < limit:
-            s_k = tuple(
-                _shift_down(a, d, f)
-                for a, f in zip(kk, (INF_COST, 3, 0, 0, 0))
-            )
-            s_cc_cost = _shift_down(cc_cost, d, 0)
-            s_cc_score = _shift_down(cc_score, d, 0)
-            prop = (
-                torch.clamp(s_k[0] + cc_cost, max=INF_COST),
-                s_k[1], s_k[2], s_k[3] + cc_score, s_k[4],
-            )
+        v0 = state[:, 0:1] + v0_inc  # row 0: (3, 1, B)
+        diag, prev = state[:, :-1], state[:, 1:]
+        diag_score = MATCH_SCORE - (MATCH_SCORE - MISMATCH_SCORE) * mismatch
+        diag_leaf = torch.stack([diag[0] + mismatch, diag_tie,
+                                 diag[1] + diag_score, diag[2]])
+        ins_leaf = torch.stack([prev[0] + ins_cost, ins_tie,
+                                prev[1] + INSERTION_SCORE, prev[2]])
+        kk = torch.where(eq, diag_leaf, _key_min(diag_leaf, ins_leaf))
+        # the deletion cascade's (cost, score) steps
+        cc = torch.stack([torch.where(eq, INF_COST, del_cost).to(i32),
+                          del_score])
+        for d, fill, zero_cc in ladder:
+            shifted = torch.cat([fill, kk[:, :-d]], dim=1)
+            prop = shifted + torch.stack([cc[0], zero_mb, cc[1], zero_mb])
+            prop[0].clamp_(max=INF_COST)
             kk = _key_min(kk, prop)
-            cc_cost = torch.clamp(s_cc_cost + cc_cost, max=INF_COST)
-            cc_score = s_cc_score + cc_score
-            d *= 2
-
-        seed_cost = torch.clamp(v0c + cc_cost, max=INF_COST)
-        seed = (
-            seed_cost,
-            torch.ones_like(seed_cost),
-            torch.full_like(seed_cost, BIG_NEG),
-            v0s + cc_score,
-            v0o.expand(m, B),
-        )
+            cc = torch.cat([zero_cc, cc[:, :-d]], dim=1) + cc
+            cc[0].clamp_(max=INF_COST)
+        seed = torch.cat([
+            torch.stack([torch.clamp(v0[0] + cc[0], max=INF_COST)]),
+            seed_tie,
+            torch.stack([v0[1] + cc[1], v0[2].expand(m, B)]),
+        ])
         final = _key_min(kk, seed)
-        new_cost = torch.where(active, torch.cat([v0c, final[0]]), cost)
-        new_score = torch.where(active, torch.cat([v0s, final[3]]), score)
-        new_origin = torch.where(active, torch.cat([v0o, final[4]]), origin)
+        state = torch.where(
+            active, torch.cat([v0, final[[0, 2, 3]]], dim=1), state
+        )
+        new_cost, new_score, new_origin = state[0], state[1], state[2]
 
         # band update (Ukkonen)
         fill_end = last
@@ -623,6 +671,12 @@ def locate_reference(enc: torch.Tensor, lengths: torch.Tensor,
         best_ref_stop = torch.where(update, i, best_ref_stop)
         best_query_stop = torch.where(update, n, best_query_stop)
 
+    if wide:
+        return torch.cat([
+            best_found.to(i32), torch.clamp(best_origin, min=0),
+            best_query_stop, best_cost, best_score,
+            torch.clamp(-best_origin, min=0), best_ref_stop,
+        ]).to(i32)
     i64 = torch.int64
     query_start = torch.clamp(best_origin, min=0).to(i64)
     r0 = (query_start | (best_query_stop.to(i64) << _QSTOP_SHIFT)

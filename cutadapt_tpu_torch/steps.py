@@ -7,9 +7,9 @@ report layer collects.
 The three demultiplexers share one routing core (`_RoutedSink`): a
 writers table keyed by the routing decision (adapter name, R1 adapter
 name, or the R1×R2 name combination), an optional fallback writer for
-unmatched reads, and a drop counter when there is no fallback.
-Demultiplexing runs on this per-read path only: the GPU engine
-(accel.py) refuses it.
+unmatched reads, and a drop counter when there is no fallback. The GPU
+engine implements the same routing over whole chunks (accel.py's
+demultiplexing in emit).
 
 Capability parity: cutadapt:src/cutadapt/steps.py:34-580.
 """

@@ -237,6 +237,12 @@ def test_unknown_device_fails(port_env, tmp_path, caplog):
     assert "could not start" in caplog.text
 
 
+# an adapter of 16 distinct letters compared as ASCII (-N): 17 query
+# classes, the byte lane, which the engine does not run yet
+BYTE_LANE = ["-a", "ACGTRYKMXSWBDHVN", "-N"]
+BYTE_LANE_REASON = "more than 16 query classes"
+
+
 def test_fallback_counted_on_refused_case_only(port_env, tmp_path):
     fallbacks, runs = accel.FALLBACK_COUNT, plain_runs()
     _, out = run_case("small", tmp_path)
@@ -244,21 +250,17 @@ def test_fallback_counted_on_refused_case_only(port_env, tmp_path):
     assert accel.FALLBACK_COUNT == fallbacks
     assert plain_runs() > runs
 
-    _, out = run_case("strip_suffix", tmp_path)
-    assert read(out) == read(golden_path(BY_ID["strip_suffix"][2]))
+    data = golden_args([], "", "small.fastq")[-1]
+    for which, main in (("port", cli.main), ("jax", jax_cli.main)):
+        main(BYTE_LANE + ["-o", str(tmp_path / which), data])
+    assert read(tmp_path / "port") == read(tmp_path / "jax")
     assert accel.FALLBACK_COUNT == fallbacks + 1
-    assert ENGINE_NOT_YET["strip_suffix"] in accel.LAST_FALLBACK
+    assert BYTE_LANE_REASON in accel.LAST_FALLBACK
 
 
 # options whose pipeline the engine refuses, with the reason it gives
 REFUSED_OPTIONS = [
-    (["--rest-file", "{d}/rest.txt"], "step RestFileWriter"),
-    (["--info-file", "{d}/info.txt"], "step InfoFileWriter"),
-    (["--wildcard-file", "{d}/wildcard.txt"], "step WildcardFileWriter"),
-    (["-o", "{d}/{{name}}.fastq"], "step Demultiplexer"),
-    (["--rename", "{{id}}_x"], "modifier Renamer"),
-    (["--zero-cap"], "modifier ZeroCapper"),
-    (["-x", "pre_"], "modifier PrefixSuffixAdder"),
+    (BYTE_LANE, BYTE_LANE_REASON),
     (["--revcomp", "--poly-a"],
      "a host stage after the --revcomp stage has no engine form"),
     (["-a", "ACGTACGT;anywhere"], "'anywhere' search parameter"),
@@ -302,17 +304,61 @@ def test_refused_options_fail_in_require_mode_and_run_on_host(
     assert outputs["port"]
 
 
+# options of the output side, which the engine runs; the ids are those
+# of the refusals they were before
+OUTPUT_SIDE_OPTIONS = [
+    (["--rest-file", "{d}/rest.txt"], "RestFileWriter"),
+    (["--info-file", "{d}/info.txt"], "InfoFileWriter"),
+    (["--wildcard-file", "{d}/wildcard.txt"], "WildcardFileWriter"),
+    (["-o", "{d}/{{name}}.fastq", "--untrimmed-output", "{d}/untrimmed"],
+     "Demultiplexer"),
+    (["--rename", "{{id}}_x {{adapter_name}} {{match_sequence}}"],
+     "Renamer"),
+    (["--zero-cap", "--max-ee", "1"], "ZeroCapper"),
+    (["-x", "pre_{{name}}_", "-y", "_post"], "PrefixSuffixAdder"),
+]
+
+
+@pytest.mark.parametrize(
+    "options", [o for o, _ in OUTPUT_SIDE_OPTIONS],
+    ids=[i for _, i in OUTPUT_SIDE_OPTIONS],
+)
+def test_output_side_options_ride_the_engine(port_env, tmp_path, options):
+    """Under require, every output file and the --json report equal what
+    the JAX package's CLI writes, with no fallback."""
+    data = golden_args([], "", "small.fastq")[-1]
+    outputs = {}
+    port_env.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
+    for which, main in (("port", cli.main), ("jax", jax_cli.main)):
+        d = tmp_path / which
+        d.mkdir()
+        _restart_adapter_names(port_env)
+        fallbacks, runs = accel.FALLBACK_COUNT, plain_runs()
+        main(["-a", "first=TTAGACATATCTCCGTCG", "-o", str(d / "out.fastq"),
+              "--json", str(d / "report.json")]
+             + [o.format(d=d) for o in options] + [data])
+        if which == "port":
+            assert accel.FALLBACK_COUNT == fallbacks
+            assert plain_runs() > runs
+        outputs[which] = {p.name: read(p) for p in d.iterdir()
+                          if p.name != "report.json"}
+        outputs[which]["report"] = _json_report(d / "report.json")
+    assert outputs["port"] == outputs["jax"]
+    assert len(outputs["port"]) > 1
+
+
 def test_paired_end_is_refused(port_env, tmp_path, caplog):
     """Paired-end runs ride the engine (tests/test_torch_paired.py), but
-    paired demultiplexing is refused yet, with its reason."""
+    a paired run of an adapter in the byte lane is refused yet, with its
+    reason."""
     port_env.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
     data = golden_args([], "", "paired.1.fastq")[-1]
     with pytest.raises(SystemExit) as e:
-        cli.main(["-a", "TTAGACATAT", "-o", str(tmp_path / "{name}.1.fastq"),
-                  "-p", str(tmp_path / "{name}.2.fastq"), data,
-                  data.replace("paired.1", "paired.2")])
+        cli.main(BYTE_LANE + ["-o", str(tmp_path / "1.fastq"),
+                              "-p", str(tmp_path / "2.fastq"), data,
+                              data.replace("paired.1", "paired.2")])
     assert e.value.code == 1
-    assert "demultiplexing (PairedDemultiplexer) is not ported" in caplog.text
+    assert BYTE_LANE_REASON in caplog.text
 
 
 def test_quality_trimming_of_fasta_is_refused(port_env, tmp_path, caplog):
@@ -322,7 +368,7 @@ def test_quality_trimming_of_fasta_is_refused(port_env, tmp_path, caplog):
                   str(tmp_path / "out.fasta"),
                   golden_args([], "", "multi.fasta")[-1]])
     assert e.value.code == 1
-    assert "quality trimming of FASTA input" in caplog.text
+    assert "quality trimming or capping of FASTA input" in caplog.text
 
 
 def test_shard_is_refused(port_env, tmp_path, caplog):

@@ -63,6 +63,38 @@ def _held_to_plain_and_scalar(spec, raw, enc, lens, pack2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pack2", [False, True], ids=["4bit", "2bit"])
+def test_wide_kernel_matches_plain_on_card(card, pack2):
+    """The wide (7, B) store in each layout mode (a flagship-sized adapter
+    in registers, 300 bp in shared memory, 4,000 bp in device scratch)
+    and on reads of 2**14 bp or more, against the plain version on all 7
+    fields; every launch counts as wide."""
+    rng = np.random.RandomState(14)
+    align_cuda.reset_launch_counters()
+    lane = "pack2" if pack2 else "pack4"
+    cases = [(spec, fx.random_batch(spec, rng, 64 if len(spec.reference)
+                                    > 1000 else 256, 512, pack2))
+             for spec in [fx.parity_specs()[0], fx.long_specs()[-1],
+                          fx.very_long_spec()]]
+    spec = fx.parity_specs()[0]
+    cases.append((spec, fx.long_batch(spec, rng, 32, (16400, 17000),
+                                      pack2)))
+    for spec, (raw, enc, lens) in cases:
+        tables = align_cuda.make_tables(spec)
+        enc_d = torch.from_numpy(enc).cuda()
+        len_d = torch.from_numpy(lens).cuda()
+        got = align_cuda.locate_packed(enc_d, len_d, tables, pack2, wide=True)
+        plain = align_cuda.locate_reference(enc_d, len_d, tables, pack2,
+                                            wide=True)
+        got = align_cuda.unpack_wide(got.cpu().numpy())
+        assert got[0].any()
+        assert fx.first_difference(
+            got, align_cuda.unpack_wide(plain.cpu().numpy())) is None
+    assert {key[3] for key in align_cuda.VARIANT_LAUNCHES} == {0, 1, 2}
+    assert align_cuda.WIDE_LAUNCHES[lane] == align_cuda.LAUNCHES[lane] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack2", [False, True], ids=["4bit", "2bit"])
 def test_long_adapter_kernel_matches_plain_on_card(card, pack2):
     """200 bp adapters (32 lanes of 7 rows in registers), a 300 bp one
     (rows in shared memory) and a 4,000 bp one (rows in device scratch)
@@ -204,9 +236,9 @@ def test_linked_engine_on_card_matches_cpu(card, monkeypatch):
     real = tbp.locate_packed
     monkeypatch.setattr(
         tbp, "locate_packed",
-        lambda enc, lens, tables, pack2: phases.append(
+        lambda enc, lens, tables, pack2, **kw: phases.append(
             (tables.spec.flags, pack2, enc.device.type))
-        or real(enc, lens, tables, pack2),
+        or real(enc, lens, tables, pack2, **kw),
     )
     launches = _engine_on_card_and_cpu(
         lambda: [fx.cutter_stage(fx.PORT_MODULES,
@@ -353,10 +385,10 @@ class _Spy:
         self.rc = False
         real = tbp.locate_packed
 
-        def spy(enc, lens, tables, pack2):
+        def spy(enc, lens, tables, pack2, wide=False):
             self.calls.append((self.rc, enc.device.type, enc.clone(),
-                               lens.clone(), tables, pack2))
-            return real(enc, lens, tables, pack2)
+                               lens.clone(), tables, pack2, wide))
+            return real(enc, lens, tables, pack2, wide=wide)
 
         monkeypatch.setattr(tbp, "locate_packed", spy)
 
@@ -364,14 +396,17 @@ class _Spy:
         """Every recorded launch on the card equals the plain version on
         the same CUDA tensors; returns the launch shapes."""
         shapes = set()
-        for _, dev, enc, lens, tables, pack2 in self.calls:
+        for _, dev, enc, lens, tables, pack2, wide in self.calls:
             if dev != "cuda":
                 continue  # the CPU twin of a _card_and_cpu run
-            got = align_cuda.locate_packed(enc, lens, tables, pack2)
-            plain = align_cuda.locate_reference(enc, lens, tables, pack2)
+            unpack = (align_cuda.unpack_wide if wide
+                      else align_cuda.unpack_result)
+            got = align_cuda.locate_packed(enc, lens, tables, pack2,
+                                           wide=wide)
+            plain = align_cuda.locate_reference(enc, lens, tables, pack2,
+                                                wide=wide)
             assert fx.first_difference(
-                align_cuda.unpack_result(got.cpu().numpy()),
-                align_cuda.unpack_result(plain.cpu().numpy()),
+                unpack(got.cpu().numpy()), unpack(plain.cpu().numpy()),
             ) is None
             shapes.add((pack2, tuple(enc.shape)))
         return shapes
@@ -473,7 +508,9 @@ def test_run_rc_pair_on_card(card, monkeypatch):
             res = accel._run_rc_pair(engines, (st1, st2, mod), chunks,
                                      windows)
         return dict(windows=list(res[2:6]), matched=list(res[6:8]),
-                    gids=list(res[8:10]), rc=mod.reverse_complemented)
+                    gids=[res[8][0], res[9][0]],
+                    geometry=[res[8][1], res[9][1]],
+                    rc=mod.reverse_complemented)
 
     got = _card_and_cpu(run)
     # a swapped pair is told apart where an adapter is read (a third)

@@ -255,8 +255,8 @@ def test_linked_launches_both_phases(amplicons, monkeypatch):
     real = tbp.locate_packed
     monkeypatch.setattr(
         tbp, "locate_packed",
-        lambda enc, lens, tables, pack2: flags.append(tables.spec.flags)
-        or real(enc, lens, tables, pack2),
+        lambda enc, lens, tables, pack2, **kw: flags.append(
+            tables.spec.flags) or real(enc, lens, tables, pack2, **kw),
     )
     stage, _ = fx.cutter_stage(PORT, [("back", fx.LINKED_PRIMERS)])
     engine = tbp.BatchPipelineEngine([stage], **SIZES, device="cpu")

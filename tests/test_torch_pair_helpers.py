@@ -215,13 +215,14 @@ def test_run_rc_pair_matches_jax(adapter_names, action, sides):
         res = pkg_accel._run_rc_pair(_engines(bp, **kw), (st1, st2, mod),
                                      cks, _windows(cks, 9))
         slots, windows, matched = res[:2], res[2:6], res[6:8]
-        gids = (res[8], res[9]) if name == "port" else (res[8][0], res[9][0])
-        rc_action, rem1, rem2 = res[-1] if name == "port" else res[10]
+        gids = (res[8][0], res[9][0])
+        rc_action, rem1, rem2 = res[10]
         keep = np.ones(slots[0].n_records, bool)
         out[name] = dict(
             bytes=[asm(slot, windows[2 * i], windows[2 * i + 1], keep)
                    for i, slot in enumerate(slots)],
             windows=list(windows), matched=list(matched), gids=list(gids),
+            geometry=[res[8][1], res[9][1]],
             action=rc_action, remainders=[rem1, rem2],
             reverse_complemented=mod.reverse_complemented,
             cutters=[(s.modifier.with_adapters,

@@ -5,8 +5,9 @@ require``, the aligner's plain PyTorch version on the CPU):
 - every golden case of ``tests/test_paired.py`` (PAIRED_GOLDEN_CASES at
   -j 1 and 2, the interleaved, revcomp, routed-output, anchored and R2
   quality cases) byte-identical to ``tests/cut/``, with no fallback;
-- the cases the engine refuses yet (``torch_fixtures.
-  ENGINE_NOT_YET_PAIRED``) exit 1 with the reason named there;
+- the cases of the output side (demultiplexing, --rename, name edits)
+  write every file the JAX package's CLI writes, and what
+  ``tests/cut/`` holds for them, with no fallback;
 - the pairing errors give the host path's message and exit code;
 - --pair-adapters and paired --revcomp launch the aligner from the
   drive's emit thread.
@@ -21,7 +22,10 @@ import os
 
 import pytest
 
+import cutadapt_tpu.adapters as jax_adapters
+import cutadapt_tpu.cli as jax_cli
 import cutadapt_tpu_torch.accel as taccel
+import cutadapt_tpu_torch.adapters as port_adapters
 import cutadapt_tpu_torch.batch_pipeline as tbp
 import cutadapt_tpu_torch.cli as port_cli
 from cutadapt_tpu_torch.ops import align_cuda
@@ -199,9 +203,19 @@ def test_qualtrim_r2_engine(tmp_path, args, expected1, expected2):
                 expected1, expected2)
 
 
-# the paired cases the engine refuses yet: command lines of
+# the paired cases of the output side: command lines of
 # tests/test_paired.py (and of test_accel.py's pe_name_edits)
-def _refused_args(case_id, d):
+OUTPUT_SIDE_PAIRED = (
+    "combinatorial_demultiplexing", "pair_adapters_demultiplexing",
+    "paired_demultiplex", "pe_name_edits", "rename", "strip_suffix_length_tag",
+)
+# those of them whose outputs tests/cut/ holds
+GOLDEN_OUTPUT_SIDE = {"combinatorial_demultiplexing",
+                      "pair_adapters_demultiplexing", "paired_demultiplex",
+                      "rename"}
+
+
+def _output_side_args(case_id, d):
     paired = [os.path.join(DATA, "paired.1.fastq"),
               os.path.join(DATA, "paired.2.fastq")]
     if case_id == "paired_demultiplex":
@@ -222,6 +236,7 @@ def _refused_args(case_id, d):
                 f"{DATA}/combinatorial.2.fastq").split()
     outs = ["-o", f"{d}/out.1.fastq", "-p", f"{d}/out.2.fastq"]
     if case_id == "rename":
+        outs = ["-o", f"{d}/rename.1.fastq", "-p", f"{d}/rename.2.fastq"]
         return ["--rename={id} {r1.cut_prefix} {cut_prefix} {comment} "
                 "{adapter_name} {r2.adapter_name}", "--cut=4",
                 "-a", "R1adapter=GTCTCCAGCT", "-A", "R2adapter=GACAAATAAC",
@@ -233,14 +248,43 @@ def _refused_args(case_id, d):
             "--length-tag", "length=", *outs, *paired]
 
 
-@pytest.mark.parametrize("case_id", sorted(fx.ENGINE_NOT_YET_PAIRED))
-def test_refused_paired_cases_exit_with_reason(tmp_path, caplog, case_id):
-    fallbacks = taccel.FALLBACK_COUNT
-    with pytest.raises(SystemExit) as e:
-        port_cli.main(_refused_args(case_id, tmp_path))
-    assert e.value.code == 1
-    assert fx.ENGINE_NOT_YET_PAIRED[case_id] in caplog.text
-    assert taccel.FALLBACK_COUNT == fallbacks + 1
+def _golden_of(name):
+    for path in (name, os.path.join("combinatorial", name)):
+        if os.path.exists(fx.golden_path(path)):
+            return fx.golden_path(path)
+    return None
+
+
+@pytest.mark.parametrize("case_id", OUTPUT_SIDE_PAIRED)
+def test_output_side_paired_cases_ride_the_engine(port_env, tmp_path,
+                                                  case_id):
+    """Under require, with no fallback and the aligner launched, the
+    port writes every file the JAX package's CLI writes (on its host
+    path), and the --json report is the same; the files tests/cut/ holds
+    equal it."""
+    assert not fx.ENGINE_NOT_YET_PAIRED
+    outputs = {}
+    for which, main in (("port", _engine_main), ("jax", jax_cli.main)):
+        d = tmp_path / which
+        d.mkdir()
+        for module in (port_adapters, jax_adapters):
+            port_env.setattr(module, "_adapter_counter", [0])
+        result = main(_output_side_args(case_id, d)
+                      + ["--json", str(d / "report.json")])
+        if which == "port":
+            # two anchored 5' adapters per side are an indexed (host) task
+            assert (result[1] == 0) == (
+                case_id == "combinatorial_demultiplexing"
+            )
+        outputs[which] = {p.name: p.read_bytes() for p in d.iterdir()
+                          if p.name != "report.json"}
+        outputs[which]["report"] = fx.json_report(d / "report.json")
+    assert outputs["port"] == outputs["jax"]
+    golden = [n for n in outputs["port"] if _golden_of(n)]
+    assert bool(golden) == (case_id in GOLDEN_OUTPUT_SIDE)
+    for name in golden:
+        with open(_golden_of(name), "rb") as want:
+            assert outputs["port"][name] == want.read(), name
 
 
 def _pairing_inputs(name, tmp_path):
@@ -310,9 +354,9 @@ def test_pair_match_and_rc_dispatch_from_emit(tmp_path, monkeypatch):
     threads = set()
     real = tbp.locate_packed
 
-    def spy(enc, lens, tables, pack2):
+    def spy(enc, lens, tables, pack2, **kw):
         threads.add(threading.current_thread().name)
-        return real(enc, lens, tables, pack2)
+        return real(enc, lens, tables, pack2, **kw)
 
     monkeypatch.setattr(tbp, "locate_packed", spy)
     inputs = fx.accel_reads(tmp_path / "in.fastq", n=100, paired=True)

@@ -186,8 +186,8 @@ def test_revcomp_dispatches_both_orientations_in_submit(amplicons,
     real = tbp.locate_packed
     monkeypatch.setattr(
         tbp, "locate_packed",
-        lambda enc, lens, tables, pack2: launched.append(pack2)
-        or real(enc, lens, tables, pack2),
+        lambda enc, lens, tables, pack2, **kw: launched.append(pack2)
+        or real(enc, lens, tables, pack2, **kw),
     )
     stage = _rc_stage(PORT, PRIMER, "trim", 1)
     engine = tbp.BatchPipelineEngine([stage], **SIZES, device="cpu")

@@ -171,13 +171,14 @@ def _draw_primer(rng: np.random.RandomState, primer: str, n: int):
     ], axis=1)
 
 
-def fastq_records(seqs: np.ndarray, seq_len: np.ndarray,
-                  quals: np.ndarray, mate: str = "") -> bytes:
-    """FASTQ records ``@r<i>`` (``@r<i>/1`` with ``mate="/1"``) from
-    row-padded (n, W) sequence and quality bytes, read i holding the
-    first seq_len[i] of its row."""
+def fastq_records(seqs: np.ndarray, seq_len: np.ndarray, quals: np.ndarray,
+                  mate: str = "", comment: str = "") -> bytes:
+    """FASTQ records ``@r<i>`` (``@r<i>/1`` with ``mate="/1"``, then
+    `` comment`` where one is given) from row-padded (n, W) sequence and
+    quality bytes, read i holding the first seq_len[i] of its row."""
     n = len(seq_len)
-    names = [f"@r{i}{mate}\n".encode() for i in range(n)]
+    comment = f" {comment}" if comment else ""
+    names = [f"@r{i}{mate}{comment}\n".encode() for i in range(n)]
     name_lens = np.array([len(x) for x in names], np.int64)
     lens = seq_len.astype(np.int64)
     rec_lens = name_lens + 2 * lens + 4
@@ -311,6 +312,120 @@ def make_pairs(n_pairs: int, seed: int = 150) -> tuple:
     return tuple(mates)
 
 
+# --- long reads and the output side (chip_smoke.py phases 10 and 11) --------
+
+# read lengths of PacBio HiFi and Oxford Nanopore runs, which commonly
+# run 10-30 kb
+LONG_READ_LENGTHS = (8000, 32000)
+
+
+def make_long_reads(n_reads: int, seed: int = 16384,
+                    lengths=LONG_READ_LENGTHS) -> bytes:
+    """FASTQ records ``@r<i>`` of lengths uniform in ``lengths`` (about two
+    thirds of them 2**14 bp or more at the default), random bases, phred
+    2-40: a quarter carry the flagship adapter at a uniform position (many
+    past 2**14), and 3% carry one to three N, so that the aligner's 4-bit
+    lane runs too."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(lengths[0], lengths[1] + 1, n_reads)
+    width = int(lens.max(initial=0))
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    seqs = bases[rng.randint(0, 4, (n_reads, width), dtype=np.uint8)]
+    ad = np.frombuffer(ADAPTER.encode(), np.uint8)
+    for i in np.flatnonzero(rng.rand(n_reads) < ADAPTER_FRACTION):
+        pos = rng.randint(0, lens[i] - 3)
+        take = min(len(ad), lens[i] - pos)
+        seqs[i, pos : pos + take] = ad[:take]
+    for i in np.flatnonzero(rng.rand(n_reads) < 0.03):
+        seqs[i, rng.randint(0, lens[i], rng.randint(1, 4))] = ord("N")
+    quals = rng.randint(35, 74, (n_reads, width), dtype=np.uint8)
+    return fastq_records(seqs, lens, quals)
+
+
+def long_batch(spec: AlignerSpec, rng: np.random.RandomState, B: int,
+               lengths, pack2: bool):
+    """(raw bytes, packed class ids, lengths) of B reads of lengths uniform
+    in ``lengths``, random ACGT (a third with one N in the 4-bit lane), a
+    third with a copy of the spec's reference at a uniform position."""
+    cls_lut, _ = query_class_info(spec)
+    lens = rng.randint(lengths[0], lengths[1] + 1, B).astype(np.int32)
+    width = -(-int(lens.max()) // 4) * 4
+    raw = np.frombuffer(b"ACGT", np.uint8)[
+        rng.randint(0, 4, (B, width), dtype=np.uint8)]
+    ad = np.frombuffer(spec.reference.encode(), np.uint8)
+    for i in range(0, B, 3):
+        pos = rng.randint(0, lens[i] - len(ad))
+        raw[i, pos : pos + len(ad)] = ad
+        if not pack2:
+            raw[i + 1 if i + 1 < B else i, rng.randint(0, lens[i])] = ord("N")
+    raw[np.arange(width)[None, :] >= lens[:, None]] = 0
+    cls = cls_lut[raw]
+    if pack2:
+        enc = (cls[:, 0::4] | (cls[:, 1::4] << 2) | (cls[:, 2::4] << 4)
+               | (cls[:, 3::4] << 6))
+    else:
+        enc = cls[:, 0::2] | (cls[:, 1::2] << 4)
+    return raw, enc.astype(np.uint8), lens
+
+
+UMI_LEN = 8
+
+
+def make_umi_reads(n_reads: int, seed: int = 108) -> bytes:
+    """The flagship reads (make_dataset's draw) behind a random 8-bp UMI:
+    108 bp records ``@r<i> 1:N:0:ATCACG``, as ``-u 8 --rename
+    '{id}_{cut_prefix} {comment}'`` moves the UMI into the name (the
+    "--rename" section of cutadapt's user guide)."""
+    rng = np.random.RandomState(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    seqs = bases[rng.randint(0, 4, (n_reads, UMI_LEN + READ_LEN),
+                             dtype=np.uint8)]
+    ad = np.frombuffer(ADAPTER.encode(), np.uint8)
+    for i in np.flatnonzero(rng.rand(n_reads) < ADAPTER_FRACTION):
+        pos = UMI_LEN + rng.randint(10, READ_LEN - 3)
+        take = min(len(ad), UMI_LEN + READ_LEN - pos)
+        seqs[i, pos : pos + take] = ad[:take]
+    quals = rng.randint(35, 74, seqs.shape, dtype=np.uint8)
+    return fastq_records(seqs, np.full(n_reads, UMI_LEN + READ_LEN), quals,
+                         comment="1:N:0:ATCACG")
+
+
+N_BARCODES = 16
+BARCODE_LEN = 8
+
+
+def make_barcoded_pairs(n_pairs: int, seed: int = 16) -> tuple:
+    """make_pairs' pairs with one of 16 seeded 8-bp barcodes before R1 in
+    95% of them: (R1, R2, the barcodes' FASTA ``>bc<k>``), the input of
+    ``-g ^file:barcodes.fasta`` demultiplexing ("Demultiplexing
+    paired-end reads" in cutadapt's user guide)."""
+    r1, r2 = make_pairs(n_pairs, seed)
+    rng = np.random.RandomState(seed)
+    codes = set()
+    while len(codes) < N_BARCODES:
+        codes.add(bytes(np.frombuffer(b"ACGT", np.uint8)[
+            rng.randint(0, 4, BARCODE_LEN)]))
+    codes = sorted(codes)
+    chunk = parse_fastq_chunk(r1)
+    buf = np.frombuffer(r1, np.uint8)
+    L = PAIR_READ_LEN
+    seqs = buf[chunk.seq_start[:, None] + np.arange(L)]
+    quals = buf[chunk.qual_start[:, None] + np.arange(L)]
+    has = rng.rand(n_pairs) < 0.95
+    bc = np.frombuffer(b"".join(codes), np.uint8).reshape(N_BARCODES, -1)[
+        rng.randint(N_BARCODES, size=n_pairs)]
+    pad = np.zeros((n_pairs, BARCODE_LEN), np.uint8)
+    seqs = np.where(has[:, None], np.concatenate([bc, seqs], axis=1),
+                    np.concatenate([seqs, pad], axis=1))
+    bq = np.full((n_pairs, BARCODE_LEN), ord("I"), np.uint8)
+    quals = np.where(has[:, None], np.concatenate([bq, quals], axis=1),
+                     np.concatenate([quals, pad], axis=1))
+    r1 = fastq_records(seqs, np.where(has, L + BARCODE_LEN, L), quals,
+                       mate="/1")
+    fasta = b"".join(b">bc%02d\n%s\n" % (k, c) for k, c in enumerate(codes))
+    return r1, r2, fasta
+
+
 def add_ns(data: bytes, fraction: float, seed: int = 5) -> bytes:
     """Copy of a FASTQ buffer in which ``fraction`` of the reads carry
     one to three N bases at random positions."""
@@ -429,21 +544,10 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 # Golden cases whose pipeline the port's engine does not express yet, each
 # with the reason its translation gives (a substring of the require-mode
 # error). A case leaves this dict when a later slice ports what it names.
-ENGINE_NOT_YET = {
-    "length_tag": "modifier LengthTagModifier",
-    "strip_suffix": "modifier SuffixRemover",
-}
+ENGINE_NOT_YET = {}
 # Paired golden cases (tests/test_paired.py) the port's engine refuses
 # yet, each with the reason its translation gives
-ENGINE_NOT_YET_PAIRED = {
-    "paired_demultiplex": "demultiplexing (PairedDemultiplexer)",
-    "pair_adapters_demultiplexing": "demultiplexing (PairedDemultiplexer)",
-    "combinatorial_demultiplexing":
-        "demultiplexing (CombinatorialDemultiplexer)",
-    "rename": "modifier PairedEndRenamer",
-    "pe_name_edits": "modifier PrefixSuffixAdder",
-    "strip_suffix_length_tag": "modifier LengthTagModifier",
-}
+ENGINE_NOT_YET_PAIRED = {}
 # Accepted cases in which the aligner has nothing to do
 NO_ALIGNER_RUN = {
     "fasta_no_trim": "no adapter",
@@ -459,6 +563,7 @@ NO_ALIGNER_RUN = {
     "negative_length": "host stage only",
     "qualtrim": "the k-mer prefilter passes no read for XXXXXX",
     "qualbase": "the k-mer prefilter passes no read for XXXXXX",
+    "strip_suffix": "the k-mer prefilter passes no read for XXXXXXX",
     "anchored_back_no_indels": "comparer (host) task only",
     "anchored_no_indels": "comparer (host) task only",
     "anchored_no_indels_wildcard_read": "comparer (host) task only",
@@ -555,6 +660,24 @@ def paired_golden_args(params, out1: str, out2: str, in1: str,
     return params + ["--buffer-size=512", "-o", out1, "-p", out2,
                      os.path.join(TESTS, "data", in1),
                      os.path.join(TESTS, "data", in2)]
+
+
+# keys of the --json report that differ between two packages' runs of
+# one configuration
+VOLATILE_REPORT_KEYS = (
+    "cutadapt_version", "command_line_arguments", "python_version",
+)
+
+
+def json_report(path) -> dict:
+    """A --json report without its volatile keys."""
+    import json
+
+    with open(path) as f:
+        report = json.load(f)
+    for key in VOLATILE_REPORT_KEYS:
+        report.pop(key, None)
+    return report
 
 
 def golden_path(expected: str) -> str:
@@ -742,13 +865,16 @@ def scalar_locate(spec: AlignerSpec, raw: np.ndarray, lens: np.ndarray):
 
 
 def first_difference(got, want) -> Optional[str]:
-    """None if two (found, qstart, qstop, errors, score) results agree
-    under the comparison rule, else the first field that differs."""
+    """None if two (found, qstart, qstop, errors, score[, ref_start,
+    ref_stop]) results agree under the comparison rule, else the first
+    field that differs."""
+    if len(got) != len(want):
+        return f"fields ({len(got)} against {len(want)})"
     if not np.array_equal(got[0], want[0]):
         return f"found ({int((got[0] != want[0]).sum())} reads)"
     f = want[0]
-    for name, g, w in zip(("qstart", "qstop", "errors", "score"),
-                          got[1:], want[1:]):
+    for name, g, w in zip(("qstart", "qstop", "errors", "score",
+                           "ref_start", "ref_stop"), got[1:], want[1:]):
         if not np.array_equal(g[f], w[f]):
             return f"{name} ({int((g[f] != w[f]).sum())} reads)"
     return None
