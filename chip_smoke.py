@@ -15,12 +15,18 @@ Phases, each of which must pass:
    kernel, at 1024 reads of at least twice their length; on three 200 bp
    adapters and a 300 bp one (rows in shared memory) at 1024 reads x
    512 bp; and on a 4,000 bp one (rows in device scratch) at 64 reads x
-   512 bp. Every instantiation of the kernel in the library must have run
-   here. Then the wide result (the (7, B) store of windows of 2**14 bp
+   512 bp; the byte lane (adapters of more than 16 query classes, one
+   query code per byte) on one adapter of lanes x rows - 1 bp for each of
+   its register variants (8 x 3 to 32 x 8), a 300 bp one (shared memory)
+   and a 4,000 bp one (device scratch), each holding the 16 letters
+   ACGTRYKMXSWBDHVN, in the packed and the wide store. Every
+   instantiation of the kernel in the library must have run here. Then
+   the wide result (the (7, B) store of windows of 2**14 bp
    or more and of adapter-side coordinates) in both lanes, on one spec of
    each layout mode (registers, shared memory, device scratch) and on
    256 reads of 16,400-20,000 bp with the flagship adapter, against the
-   plain version on all 7 fields. Results are integers: `found` must
+   plain version on all 7 fields, and the byte lane on 32 reads of
+   16,400-20,000 bp. Results are integers: `found` must
    agree everywhere, query start/stop, errors and score (and ref
    start/stop) wherever a match was found (tolerance: exact);
 3. main path: flagship single-end 3' trimming of the TruSeq adapter,
@@ -86,18 +92,32 @@ Phases, each of which must pass:
    ^file:barcodes.fasta -o trimmed-{name}.1.fastq -p
    trimmed-{name}.2.fastq ("Demultiplexing paired-end reads") on
    262,144 pairs, 95% of them with one of 16 barcodes before R1: an
-   indexed host task, which must launch no kernel.
+   indexed host task, which must launch no kernel;
+12. the byte lane: -N -e 0.1 -a ACGTRYKMXSWBDHVNACGT (a 20 bp adapter of
+   17 query classes) on 131,072 reads of 100 bp
+   (torch_fixtures.make_byte_lane_reads: a quarter carry a prefix of the
+   adapter with up to 2 substitutions, 3% carry 1-3 N), held and
+   measured as phase 6 (with its start-up); only the byte lane launches;
+13. the golden suites: tests/test_commandline.py and tests/test_paired.py
+   unedited through the port on the card, in a pytest subprocess with
+   the tests/torch_as_jax.py plugin under
+   CUTADAPT_TPU_TORCH_BATCH=require; pytest must exit 0 with no fallback
+   and no plain run, and kernel launches counted (the subprocess's own
+   counted window, read from the plugin's line).
 
 Launch counters are set to 0 just before each counted window (the main
 path's warm pass, the dirty lane, each counted CLI run, the golden
-cases, the counted runs of phases 6 to 11) and read just after; each
+cases, the counted runs of phases 6 to 12, the golden suites' process)
+and read just after; each
 lane the window carries must have been launched there. Prints the
 card's name and power limit, one JSON line with every kernel's numbers
 (time, plain time, bound, time / bound and error at every shape the
 path launched, and the same for the CLI's shapes under "cli" and for
 phases 6 to 11 under "host_stages", "linked", "paired" (by side),
 "revcomp" (by orientation), "long_reads" and "output_side"; the wide
-launches under "wide_launches"), and as the last line
+launches under "wide_launches"; the golden suites' launches under
+"golden_suites_launches"; the byte lane's entry with phase 12's numbers
+under "byte_lane"), the seconds of each phase, and as the last line
 {"ok": true, "device": {...}}.
 
 The workload and the parity matrix come from tests/torch_fixtures.py.
@@ -165,6 +185,33 @@ INT32_LANES_PER_SM = 64
 OPS_PER_COLUMN = 4
 OPS_PER_CELL = 24
 OPS_PER_MISMATCH = 8
+# the byte lane tests a match as one compare of the query code with the
+# row's reference code, where the packed lanes shift and mask
+OPS_PER_CELL_BYTE = OPS_PER_CELL - 1
+# phase 12: the byte lane through main (an adapter of 17 query classes)
+N_BYTE_LANE_READS = 131072
+# reads of the byte lane's wide parity on 16,400-20,000 bp
+PARITY_BYTE_WIDE_READS = 32
+# phase 13: the JAX package's golden suites through the port, unedited
+GOLDEN_SUITES = ("tests/test_commandline.py", "tests/test_paired.py")
+GOLDEN_SUITES_TIMEOUT = 300
+# seconds per phase, printed at the end
+PHASE_SECONDS = {}
+# each configuration phase's start-up: call of main to first chunk
+# submitted, in its first engine run
+STARTUP_MS = {}
+
+
+def lane_label(pack2) -> str:
+    """The kernel lane of a wrapper's pack2 argument, for the log."""
+    return {True: "2-bit", False: "4-bit", None: "byte"}[pack2]
+
+
+def lane_name(pack2) -> str:
+    """The lane's name in the wrapper's counters."""
+    from cutadapt_tpu_torch.ops.align_cuda import LANE_NAMES
+
+    return LANE_NAMES[pack2]
 
 
 def fail(msg: str) -> None:
@@ -248,21 +295,21 @@ class Recorder:
         self.fn = fn
         self.warming = warming
         self.task = task
-        self.calls = []  # (pack2, B, Wp, task, wide)
-        # (pack2, B, Wp, task, wide) -> (enc, lengths, tables)
+        self.calls = []  # (lane name, B, Wp, task, wide)
+        # (lane name, B, Wp, task, wide) -> (enc, lengths, tables)
         self.inputs = {}
-        self.warmup = {"pack2": 0, "pack4": 0}
+        self.warmup = {"pack2": 0, "pack4": 0, "byte": 0}
 
-    def launches(self, pack2: bool, task=None, wide=None) -> int:
-        return sum(1 for k in self.calls if k[0] == pack2
+    def launches(self, pack2, task=None, wide=None) -> int:
+        return sum(1 for k in self.calls if k[0] == lane_name(pack2)
                    and task in (None, k[3]) and wide in (None, k[4]))
 
     def __call__(self, enc, lengths, tables, pack2, wide=False):
         if self.warming():
-            self.warmup["pack2" if pack2 else "pack4"] += 1
+            self.warmup[lane_name(pack2)] += 1
             return self.fn(enc, lengths, tables, pack2, wide=wide)
-        key = (bool(pack2), enc.shape[0], enc.shape[1], self.task(tables),
-               bool(wide))
+        key = (lane_name(pack2), enc.shape[0], enc.shape[1],
+               self.task(tables), bool(wide))
         self.calls.append(key)
         if key not in self.inputs:
             self.inputs[key] = (enc.clone(), lengths.clone(), tables)
@@ -318,7 +365,8 @@ def parity_cases():
 
 
 def parity_phase():
-    """Both lanes on every case against the plain version and the scalar
+    """Both packed lanes on every case, and the byte lane on an adapter of
+    each of its instantiations, against the plain version and the scalar
     aligner; every instantiation of the kernel must run. Returns the
     worst error per lane."""
     import torch
@@ -327,7 +375,7 @@ def parity_phase():
     from cutadapt_tpu_torch.ops import align_cuda
 
     rng = np.random.RandomState(20260816)
-    worst = {True: 0, False: 0}
+    worst = {True: 0, False: 0, None: 0}
     runs = 0
     align_cuda.reset_launch_counters()
     t0 = time.perf_counter()
@@ -357,6 +405,7 @@ def parity_phase():
             worst[pack2] = max(worst[pack2], max_abs_err(g, p))
             runs += 1
             log(f"  parity {label}: ok ({int(g[0].sum())} matches)")
+    runs += byte_parity(rng, worst)
     ran = set(align_cuda.VARIANT_LAUNCHES)
     missing = align_cuda.instantiations() - ran
     if missing or ran - align_cuda.instantiations():
@@ -368,12 +417,67 @@ def parity_phase():
     return worst
 
 
+def byte_parity(rng, worst) -> int:
+    """The byte lane (adapters of more than 16 query classes) on one
+    adapter of lanes x rows - 1 bp for each of its register variants, of
+    300 bp (shared memory) and of 4,000 bp (device scratch), each holding
+    the 16 letters ACGTRYKMXSWBDHVN: the packed store against the plain
+    version and the scalar aligner, the wide store against the plain
+    version on all 7 fields. Updates ``worst``; returns the runs."""
+    import torch
+
+    import torch_fixtures as fx
+    from cutadapt_tpu_torch.ops import align_cuda
+
+    t0 = time.perf_counter()
+    runs = 0
+    for spec in fx.byte_variant_specs():
+        tables = align_cuda.make_tables(spec)
+        if not tables.byte:
+            fail(f"byte parity: {spec.reference[:16]}.. does not take the "
+                 f"byte lane")
+        lay = align_cuda.kernel_layout(tables.m)
+        raw, enc, lens = fx.byte_variant_batch(spec, rng)
+        enc_d = torch.from_numpy(enc).cuda()
+        len_d = torch.from_numpy(lens).cuda()
+        label = (f"{spec.reference[:12]}.. m={tables.m} flags={spec.flags} "
+                 f"{len(lens)} reads x {enc.shape[1]} bp byte lane "
+                 f"[{lay.lanes} lanes x {lay.rows} rows, {lay.mode}]")
+        for wide in (False, True):
+            unpack = align_cuda.unpack_wide if wide else \
+                align_cuda.unpack_result
+            got = align_cuda.locate_packed(enc_d, len_d, tables, None,
+                                           wide=wide)
+            plain = align_cuda.locate_reference(enc_d, len_d, tables, None,
+                                                wide=wide)
+            torch.cuda.synchronize()
+            g = unpack(got.cpu().numpy())
+            p = unpack(plain.cpu().numpy())
+            diff = fx.first_difference(g, p)
+            if diff is None:
+                diff = fx.first_difference(g[:5], fx.scalar_locate(
+                    spec, raw, lens))
+            if diff is not None:
+                fail(f"byte parity {label} {'wide' if wide else 'packed'}: "
+                     f"{diff} differs")
+            if not g[0].any():
+                fail(f"byte parity {label}: no read matched")
+            worst[None] = max(worst[None], max_abs_err(g, p))
+            runs += 1
+        log(f"  byte parity {label}: ok, packed and wide "
+            f"({int(g[0].sum())} matches)")
+    log(f"byte parity: {runs} runs agree, {len(fx.byte_variant_specs())} "
+        f"instantiations ({time.perf_counter() - t0:.1f} s)")
+    return runs
+
+
 def wide_parity(rng, worst) -> None:
     """The wide (7, B) store against the plain version on all 7 fields
     (found everywhere, the others where found) and the first five
     against the scalar aligner: a spec of each layout mode (registers,
     shared memory, device scratch) at 512 bp, and the flagship adapter on
-    reads of 2**14 bp or more, in both lanes. Updates ``worst``."""
+    reads of 2**14 bp or more, in both packed lanes; a byte-lane adapter
+    on a few such reads. Updates ``worst``."""
     import torch
 
     import torch_fixtures as fx
@@ -386,12 +490,15 @@ def wide_parity(rng, worst) -> None:
     cases.append((fx.very_long_spec(), PARITY_VERY_LONG_READS,
                   PARITY_LONG_LENGTH))
     cases.append((flagship, PARITY_WIDE_LONG_READS, PARITY_WIDE_LENGTHS))
+    # the byte lane on a few reads of 2**14 bp or more
+    byte_spec = fx.byte_lane_specs()[0]
+    cases.append((byte_spec, PARITY_BYTE_WIDE_READS, PARITY_WIDE_LENGTHS))
     before = dict(align_cuda.WIDE_LAUNCHES)
     modes = set()
     for spec, B, L in cases:
         tables = align_cuda.make_tables(spec)
         lay = align_cuda.kernel_layout(tables.m)
-        for pack2 in (True, False):
+        for pack2 in (None,) if tables.byte else (True, False):
             if isinstance(L, tuple):
                 raw, enc, lens = fx.long_batch(spec, rng, B, L, pack2)
             else:
@@ -408,7 +515,7 @@ def wide_parity(rng, worst) -> None:
             g = align_cuda.unpack_wide(got.cpu().numpy())
             p = align_cuda.unpack_wide(plain.cpu().numpy())
             label = (f"{spec.reference[:12]}.. m={len(spec.reference)} "
-                     f"{B} reads of {L} bp {'2-bit' if pack2 else '4-bit'} "
+                     f"{B} reads of {L} bp {lane_label(pack2)} "
                      f"[{lay.lanes} lanes x {lay.rows} rows, {lay.mode}]")
             diff = fx.first_difference(g, p)
             if diff is None:
@@ -425,12 +532,13 @@ def wide_parity(rng, worst) -> None:
                 f"{int(g[6][g[0]].max())}, query_stop "
                 f"{int(g[2][g[0]].max())}; plain {plain_s:.1f} s)")
     wide = {k: v - before[k] for k, v in align_cuda.WIDE_LAUNCHES.items()}
-    if modes != set(align_cuda.MODES) or min(wide.values()) < len(cases):
+    if modes != set(align_cuda.MODES) or min(
+            wide["pack2"], wide["pack4"]) < len(cases) - 1 or wide["byte"] < 1:
         fail(f"wide parity: layout modes {sorted(modes)}, wide launches "
              f"{wide}")
     WIDE_PARITY.update(wide)
-    log(f"wide parity: {2 * len(cases)} runs agree, every layout mode, wide "
-        f"launches {wide} ({time.perf_counter() - t0:.1f} s)")
+    log(f"wide parity: {sum(wide.values())} runs agree, every layout mode, "
+        f"wide launches {wide} ({time.perf_counter() - t0:.1f} s)")
 
 
 def run_pass(engine, chunks, keep_output: bool):
@@ -641,9 +749,9 @@ def cli_phase(files, engine_rps: float) -> dict:
                              f"differs from tests/cut/{expected}")
             ran += 1
         golden = dict(align_cuda.LAUNCHES)
-        if min(golden.values()) <= 0:
-            fail(f"cli golden cases: a kernel lane was never launched: "
-                 f"{golden}")
+        if min(golden["pack2"], golden["pack4"]) <= 0:
+            fail(f"cli golden cases: a packed kernel lane was never "
+                 f"launched: {golden}")
         log(f"cli: all {ran} golden cases (single-end and paired) "
             f"byte-identical on the card; "
             f"their launches (warm-ups included) {golden}")
@@ -750,6 +858,8 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
         for name, data in (files or {}).items():
             with open(os.path.join(tmp, name), "wb") as f:
                 f.write(data)
+        # seconds from the call of main to its first chunk submitted
+        started = {}
 
         def run(tag, mode):
             os.environ["CUTADAPT_TPU_TORCH_BATCH"] = mode
@@ -767,6 +877,8 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
                 with open(os.path.join(d, name), "rb") as f:
                     got[name] = f.read()
             shutil.rmtree(d)
+            if mode != "0":
+                started[tag] = accel.RUN_TIMES["first_submit"] - t0
             return got, report_parts(rep), dt
 
         want, want_rep, dt = run("host", "0")
@@ -797,7 +909,8 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
 
         dt = engine_run("first")
         log(f"{label}: first main call {dt:.3f} s, {n_reads / dt:.1f} reads/s"
-            f", output and report equal to the host path")
+            f", output and report equal to the host path; start-up (call to "
+            f"first chunk submitted) {started['first'] * 1e3:.1f} ms")
         walls = []
         for i in range(TIMED_PASSES):
             accel.reset_flight_metrics()
@@ -836,7 +949,7 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
     if accel.FALLBACK_COUNT != fallbacks:
         fail(f"{label}: {accel.FALLBACK_COUNT - fallbacks} fallbacks "
              f"({accel.LAST_FALLBACK})")
-    per_task = {(t, "2-bit" if p2 else "4-bit"): rec.launches(p2, t)
+    per_task = {(t, lane_label(p2)): rec.launches(p2, t)
                 for t in tasks for p2 in lanes}
     log(f"{label}: one run through main: launches {launches}, of which "
         f"warm-up {rec.warmup}; launches by task and lane {per_task}; per "
@@ -852,19 +965,72 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
             f"{ {k: round(v, 1) for k, v in stages.items()} }")
     log(f"{label}: median {rps:.1f} reads/s through main over "
         f"{TIMED_PASSES} runs")
+    STARTUP_MS[label] = started["first"] * 1e3
     return rec, launches, rps, wall, want_rep
 
 
-def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2: bool):
+def golden_suites_phase() -> dict:
+    """Phase 13: the JAX package's golden suites (tests/test_commandline.py,
+    tests/test_paired.py) unedited through the port on the card, in a
+    pytest subprocess with the torch_as_jax plugin (their cutadapt_tpu
+    imports resolve to cutadapt_tpu_torch) under
+    CUTADAPT_TPU_TORCH_BATCH=require, the device left as CUDA. Fails
+    unless pytest exits 0, no fallback was counted, kernel launches were
+    counted and the plain version never ran. Returns the plugin's counts,
+    the subprocess's own counted window."""
+    tests = os.path.join(HERE, "tests")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUTADAPT_TPU_TORCH_DEVICE",
+                        "CUTADAPT_TPU_TORCH_CHUNK_BYTES")}
+    env["CUTADAPT_TPU_TORCH_BATCH"] = "require"
+    env["PYTHONPATH"] = os.pathsep.join(
+        [tests, HERE] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+             "-p", "torch_as_jax"]
+            + [os.path.join(HERE, suite) for suite in GOLDEN_SUITES],
+            cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=GOLDEN_SUITES_TIMEOUT,
+        )
+    except subprocess.TimeoutExpired:
+        fail(f"golden suites: pytest did not end within "
+             f"{GOLDEN_SUITES_TIMEOUT} s")
+    dt = time.perf_counter() - t0
+    summary = next((ln for ln in proc.stdout.splitlines()[::-1]
+                    if " passed" in ln), "")
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("torch_as_jax {")), None)
+    if proc.returncode != 0 or line is None or " failed" in summary:
+        fail(f"golden suites: pytest exited {proc.returncode}:\n"
+             f"{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+    counts = json.loads(line.split(" ", 1)[1])
+    counts["summary"] = summary.strip()
+    if counts["fallbacks"] or sum(counts["plain_runs"].values()) or not sum(
+            counts["launches"].values()):
+        fail(f"golden suites: fallbacks, plain runs or no launches {counts}")
+    log(f"golden suites: {' and '.join(GOLDEN_SUITES)} unedited through the "
+        f"port on the card in {dt:.1f} s: {summary.strip()}; launches "
+        f"{counts['launches']} (wide {counts['wide_launches']}), no "
+        f"fallback, no plain run")
+    counts["seconds"] = dt
+    return counts
+
+
+def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2):
     """The DP work this batch's data needs: each read runs its active
     columns (min_n, min(max_n, width)] over rows 0..m. Returns (active
-    columns, cells of rows 1..m, those of them whose query class matches
-    the row, integer operations)."""
+    columns, cells of rows 1..m, those of them whose query class (in the
+    byte lane: code) matches the row, integer operations)."""
     spec = tables.spec
     m, k = tables.m, tables.k
     n = lengths.astype(np.int64)
-    per_byte = 4 if pack2 else 2
-    bits = 8 // per_byte
+    from cutadapt_tpu_torch.ops.align_cuda import LANE_BITS
+
+    bits = LANE_BITS[pack2]
+    per_byte = 8 // bits
     cls = np.stack([(enc >> (t * bits)) & ((1 << bits) - 1)
                     for t in range(per_byte)], axis=2).reshape(len(enc), -1)
     max_n = n if spec.start_in_query else np.minimum(n, m + k)
@@ -872,12 +1038,17 @@ def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2: bool):
     j_end = np.minimum(max_n, cls.shape[1])
     q = np.arange(cls.shape[1])[None, :]
     active = (q >= min_n[:, None]) & (q < j_end[:, None])
-    row_masks = tables.table[:m].astype(np.int64)
-    n_eq = np.array([int(((row_masks >> c) & 1).sum()) for c in range(16)])
+    rows = tables.table[:m].astype(np.int64)
+    if pack2 is None:  # the byte lane: rows hold the reference codes
+        n_eq = np.bincount(rows, minlength=256)
+        per_cell = OPS_PER_CELL_BYTE
+    else:
+        n_eq = np.array([int(((rows >> c) & 1).sum()) for c in range(16)])
+        per_cell = OPS_PER_CELL
     cols = int(active.sum())
     cells = cols * m
     eq_cells = int(n_eq[cls[active]].sum())
-    ops = (cols * OPS_PER_COLUMN + cells * OPS_PER_CELL
+    ops = (cols * OPS_PER_COLUMN + cells * per_cell
            + (cells - eq_cells) * OPS_PER_MISMATCH)
     return cols, cells, eq_cells, ops
 
@@ -907,10 +1078,10 @@ def kernel_numbers(rec, pack2, clock_hz, sms):
     import torch_fixtures as fx
     from cutadapt_tpu_torch.ops import align_cuda
 
-    shapes = sorted((k for k in rec.inputs if k[0] == pack2),
+    shapes = sorted((k for k in rec.inputs if k[0] == lane_name(pack2)),
                     key=lambda s: (-s[1], -s[2]))
     if not shapes:
-        fail(f"no {'2-bit' if pack2 else '4-bit'} launch was recorded")
+        fail(f"no {lane_label(pack2)} launch was recorded")
     per_shape = []
     for key in shapes:
         enc, lens, tables = rec.inputs[key]
@@ -994,6 +1165,13 @@ def main() -> int:
               "missing)", file=sys.stderr)
         return 2
     sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    mark = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal mark
+        now = time.perf_counter()
+        PHASE_SECONDS[name] = now - mark
+        mark = now
 
     import torch_fixtures as fx
     from cutadapt_tpu_torch import native
@@ -1025,8 +1203,11 @@ def main() -> int:
              f"wrapper's kernel_layout picks "
              f"{sorted(align_cuda.instantiations())}")
 
+    phase_done("1 build")
+
     # 2. kernel parity
     worst = parity_phase()
+    phase_done("2 kernel parity")
 
     # 3. main path
     engine = fx.make_engine(device="cuda")
@@ -1064,6 +1245,7 @@ def main() -> int:
         f"{k2['run_kernel_ms'] / 1e3 * rps / N_READS * 100:.3f}% of the "
         f"pass wall time; plain {k2['plain_ms']:.3f} ms")
 
+    phase_done("3 main path")
     # 4. dirty lane
     dirty = fx.add_ns(fx.make_dataset(N_DIRTY_READS, seed=777), 0.05)
     _, rec_dirty, launches_dirty, dirty_host, dirty_matched = drive(
@@ -1075,6 +1257,7 @@ def main() -> int:
     log(f"dirty lane: 4-bit kernel {shape_line(k4)}; plain "
         f"{k4['plain_ms']:.3f} ms")
 
+    phase_done("4 dirty lane")
     # 5. cli
     cli_runs = cli_phase({
         "clean": (data, main_out, main_matched),
@@ -1098,6 +1281,7 @@ def main() -> int:
         log(f"cli, {which} file: {'2-bit' if pack2 else '4-bit'} kernel "
             f"{shape_line(nums)}; plain {nums['plain_ms']:.3f} ms")
 
+    phase_done("5 cli")
     # 6. host stages: the repo's -q 20 -a ADAPTER --poly-a -m 10
     os.environ.pop("CUTADAPT_TPU_TORCH_CHUNK_BYTES", None)
     t0 = time.perf_counter()
@@ -1109,6 +1293,7 @@ def main() -> int:
         [polya], lambda tables: "3'", ["3'"],
     )
     del polya
+    phase_done("6 host stages")
     # 7. linked primers: the 5' phase (PREFIX) launches from submit, the
     # 3' phase (BACK) from collect
     from cutadapt_tpu_torch.adapters import Where
@@ -1125,6 +1310,7 @@ def main() -> int:
         ["5'", "3'"],
     )
     del amplicons
+    phase_done("7 linked primers")
     # 8. paired TruSeq: R1's adapter launches from the first engine, R2's
     # from the second; the reads' N take each side to the 4-bit lane too
     t0 = time.perf_counter()
@@ -1140,6 +1326,7 @@ def main() -> int:
         ["R1", "R2"], lanes=(True, False),
     )
     del pairs
+    phase_done("8 paired")
     # 9. revcomp amplicons: the forward and the rc dispatch of each chunk
     # both launch from submit
     t0 = time.perf_counter()
@@ -1153,6 +1340,7 @@ def main() -> int:
             [rc_amplicons], orientation, ["forward", "rc"],
         )
     del rc_amplicons
+    phase_done("9 revcomp")
     rc_share = rep9["read_counts"]["reverse_complemented"] / N_RC_AMPLICON_READS
     log(f"revcomp: {rep9['read_counts']['reverse_complemented']} reads "
         f"reverse-complemented ({rc_share:.4f} of the reads), equal to the "
@@ -1176,6 +1364,7 @@ def main() -> int:
         chunk_bytes=LONG_CHUNK_BYTES,
     )
     del long_reads
+    phase_done("10 long reads")
     for pack2 in (True, False):
         if rec10.launches(pack2, wide=True) <= 0 or rec10.launches(
                 pack2, wide=False):
@@ -1211,7 +1400,7 @@ def main() -> int:
         files={"barcodes.fasta": barcodes},
     )
     del r1, r2
-    if launches11b["pack2"] or launches11b["pack4"]:
+    if any(launches11b[lane] for lane in ("pack2", "pack4", "byte")):
         fail(f"output side (b): the indexed barcodes launched the kernel "
              f"{launches11b}")
     routed = rep11b["read_counts"]["read1_with_adapter"]
@@ -1219,6 +1408,23 @@ def main() -> int:
         fail(f"output side (b): {routed} pairs carried a barcode, not 95%")
     log(f"output side: (a) {rps11:.1f} reads/s, (b) {rps11b:.1f} pairs/s "
         f"through main, {routed} pairs routed by barcode")
+    phase_done("11 output side")
+    # 12. the byte lane: an adapter of 17 query classes compared as ASCII
+    t0 = time.perf_counter()
+    byte_reads = fx.make_byte_lane_reads(N_BYTE_LANE_READS)
+    log(f"byte lane: {N_BYTE_LANE_READS} reads of {fx.READ_LEN} bp "
+        f"generated ({time.perf_counter() - t0:.1f} s)")
+    rec12, launches12, rps12, wall12, _ = config_phase(
+        "byte lane", ["-N", "-e", "0.1", "-a", fx.BYTE_LANE_ADAPTER],
+        [byte_reads], lambda tables: "3'", ["3'"], lanes=(None,),
+    )
+    del byte_reads
+    if launches12["pack2"] or launches12["pack4"]:
+        fail(f"byte lane: a packed lane launched {launches12}")
+    phase_done("12 byte lane")
+    # 13. the JAX package's golden suites through the port, unedited
+    suites = golden_suites_phase()
+    phase_done("13 golden suites")
     busy = {}
     path_lanes = {}
     for path, rec, launches, lanes, wall in (
@@ -1228,12 +1434,13 @@ def main() -> int:
         ("revcomp", rec9, launches9, (True,), wall9),
         ("long_reads", rec10, launches10, (True, False), wall10),
         ("output_side", rec11, launches11, (True,), wall11),
+        ("byte_lane", rec12, launches12, (None,), wall12),
     ):
         device_ms = 0.0
         for pack2 in lanes:
-            lane = "pack2" if pack2 else "pack4"
+            lane = lane_name(pack2)
             nums = kernel_numbers(rec, pack2, clock_mhz * 1e6, sms)
-            log(f"{path}: {'2-bit' if pack2 else '4-bit'} kernel "
+            log(f"{path}: {lane_label(pack2)} kernel "
                 f"{shape_line(nums)}; plain {nums['plain_ms']:.3f} ms")
             if nums["max_abs_err"] != 0:
                 fail(f"{path}: the kernel differs from the plain version")
@@ -1243,7 +1450,7 @@ def main() -> int:
                 wide_launches=launches["wide"][lane],
                 by_task={t: rec.launches(pack2, t)
                          for t in sorted({k[3] for k in rec.calls
-                                          if k[0] == pack2})},
+                                          if k[0] == lane})},
                 max_abs_err=nums["max_abs_err"], plain_ms=nums["plain_ms"],
                 run_kernel_ms=nums["run_kernel_ms"],
                 per_shape=[{key: d[key] for key in PER_SHAPE_KEYS}
@@ -1263,6 +1470,9 @@ def main() -> int:
     log(f"long_reads_idle_share {1 - busy['long_reads']}")
     log(f"output_side_umi_reads_per_sec {rps11}")
     log(f"output_side_demux_pairs_per_sec {rps11b}")
+    log(f"byte_lane_reads_per_sec {rps12}")
+    log(f"byte_lane_startup_ms {STARTUP_MS['byte lane']}")
+    log(f"byte_lane_idle_share {1 - busy['byte_lane']}")
 
     src = "cutadapt_tpu_torch/csrc/align_locate.cu"
     kernels = []
@@ -1297,12 +1507,32 @@ def main() -> int:
                                 ("output_side", rec11, launches11)):
         kernels[1][path] = dict(launches=launches["pack4"],
                                 warmup_launches=rec.warmup["pack4"])
-    for kernel, lane in zip(kernels, ("pack2", "pack4")):
-        kernel["wide_launches"] = dict(
-            parity=WIDE_PARITY[lane],
-            long_reads=kernel["long_reads"]["wide_launches"],
-        )
+    # the byte lane: its path is phase 12's, its parity the byte parity
+    # matrix and the long reads of the wide parity
+    byte = path_lanes[None]["byte_lane"]
+    kernels.append(dict(
+        name="align_locate_byte", lane="byte", route="cuda", source=src,
+        replaces="cutadapt_tpu/ops/align_batch.py:271",
+        launches=byte["launches"], parity="ok",
+        max_abs_err=max(worst[None], byte["max_abs_err"]),
+        ms=byte["per_shape"][0]["ms"], plain_ms=byte["plain_ms"],
+        bound_ms=byte["per_shape"][0]["bound_ms"],
+        bound_by=byte["per_shape"][0]["bound_by"], library_ms=None,
+        shape=byte["per_shape"][0]["shape"],
+        lanes=align_cuda.kernel_layout(len(fx.BYTE_LANE_ADAPTER)).lanes,
+        rows=align_cuda.kernel_layout(len(fx.BYTE_LANE_ADAPTER)).rows,
+        per_shape=byte["per_shape"], byte_lane=byte,
+        startup_ms=STARTUP_MS["byte lane"],
+    ))
+    for kernel, lane in zip(kernels, ("pack2", "pack4", "byte")):
+        kernel["wide_launches"] = dict(parity=WIDE_PARITY[lane])
+        if lane != "byte":
+            kernel["wide_launches"]["long_reads"] = \
+                kernel["long_reads"]["wide_launches"]
+        kernel["golden_suites_launches"] = suites["launches"][lane]
     log(f"reads_per_sec {rps}")
+    log("seconds per phase " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     # the card again, near the end of the output
     log(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}), flush=True)

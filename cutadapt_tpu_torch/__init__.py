@@ -10,3 +10,7 @@ and ``"cpu"`` runs the kernel's plain PyTorch version.
 """
 
 __version__ = "0.1.0"
+
+# Version string reported in place of the reference's cutadapt version
+# (the JSON report embeds it); the same as the JAX package's.
+COMPAT_VERSION = "5.2"

@@ -18,7 +18,9 @@ routed outputs, --discard-trimmed/untrimmed with --untrimmed-output,
 quality edits (--strip-suffix, --length-tag, -x/-y, --zero-cap) and
 --rename; the side files (--rest-file, --info-file, --wildcard-file);
 and demultiplexing by adapter name, with --untrimmed-output. Reads of
-2**14 bp or more take the kernel's wide result.
+2**14 bp or more take the kernel's wide result; adapters that need more
+than 16 query classes (16 or more distinct letters compared as ASCII,
+such as ``-a ACGTRYKMXSWBDHVN -N``) its byte lane.
 
 Paired-end (_run_paired): two files or one interleaved file of FASTQ or
 FASTA, written as two files or interleaved; per side the same stages
@@ -35,9 +37,9 @@ matching runs of the paired --revcomp and the demultiplexing routes run
 in emit.
 
 Everything else is refused in the translation, before an engine is
-built, with a reason: adapters needing more than 16 query classes (the
-byte lane), and the combinations the JAX package's engine refuses too
-(a host stage after --revcomp, --rest-file with linked adapters, ...).
+built, with a reason: the combinations the JAX package's engine refuses
+too (a host stage after --revcomp, --rest-file with linked adapters, a
+linked adapter whose parts have no task, ...).
 A refused run is counted (:data:`FALLBACK_COUNT`) and
 takes the per-read host path, or, under
 ``CUTADAPT_TPU_TORCH_BATCH=require``, fails with
@@ -289,8 +291,7 @@ def _translate_tasks(cutter):
         try:
             tasks.append(AdapterTask(adapter, kind, i))
         except (NotImplementedError, ValueError) as e:
-            # more than 16 query classes; a linked adapter whose parts
-            # have no task of their own
+            # a linked adapter whose parts have no task of their own
             raise _Refused(str(e)) from None
     return tasks
 
@@ -1140,21 +1141,23 @@ def _input_format(infile) -> Optional[str]:
 def _setup_device(*sides, extra_tasks=()):
     """Build one engine for each (stages, filters[, engine keywords]) of
     ``sides``, all on one device: CUTADAPT_TPU_TORCH_DEVICE, unset
-    meaning CUDA. On CUDA, pin the device index, then warm every engine,
-    which builds the kernel library once, before any drive thread
-    starts, and launches each lane of each kernel task once (wide where
-    the engine wants adapter-side coordinates); ``extra_tasks`` are tasks that
-    run outside the engines' stages (--pair-adapters, paired --revcomp).
+    meaning CUDA. On CUDA, pin the device index, build the kernel
+    library, then warm every engine before any drive thread starts,
+    launching each lane of each kernel task once (wide where the engine
+    wants adapter-side coordinates); ``extra_tasks`` are tasks that run
+    outside the engines' stages (--pair-adapters, paired --revcomp).
     Failures raise DeviceError; there is no fallback to the host path
     from here."""
     import torch
 
     from .batch_pipeline import BatchPipelineEngine
-    from .ops.align_cuda import resolve_device
+    from .ops.align_cuda import build_library, resolve_device
 
     name = os.environ.get("CUTADAPT_TPU_TORCH_DEVICE") or "cuda"
     try:
         device = resolve_device(name)
+        if device.type == "cuda":
+            build_library()
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         engines = [

@@ -23,7 +23,10 @@ adapter stage, k-mer prefilter (C++), split of the candidates into the
 2-bit lane (ACGT-only windows) and the 4-bit lane (windows with
 N/IUPAC bytes; a few of those go to the C++ scalar aligner instead),
 encode and pack into pinned buffers (C++), then one kernel launch per
-dispatch batch (``ops/align_cuda.py``). Results come back through
+dispatch batch (``ops/align_cuda.py``). An adapter that needs more than
+16 query classes (16 or more distinct letters compared as ASCII) sends
+every candidate to the kernel's byte lane, one ``query_lut`` code per
+base, with no lane split. Results come back through
 pinned buffers behind CUDA events, so :func:`process_chunks_pipelined`
 overlaps chunk i's device work with chunk i+1's host work.
 
@@ -39,8 +42,7 @@ engine's wide format, int32 lengths on the wire. Quality capping
 (``qual_cap_base``) and a header-edit hook (``pre_filter_edit``) run
 before the filters, in the host's step order.
 
-Not ported yet, and refused with NotImplementedError: adapters needing
-more than 16 query classes (the byte lane) and the device mesh
+Not ported yet, and refused with NotImplementedError: the device mesh
 (:func:`set_shard_mesh`). Several tasks of one stage dispatch one by
 one (the reference's shared upload is not ported; the results are the
 same).
@@ -59,7 +61,7 @@ import torch
 from . import native
 from .adapters import Where
 from .io.chunks import assemble_window, parse_fastq_chunk, zero_cap_chunk
-from .ops.align_batch import AlignerSpec, query_class_info
+from .ops.align_batch import AlignerSpec, query_class_info, query_lut
 from .ops.align_cuda import (
     locate_packed, make_tables, resolve_device, unpack_result, unpack_wide,
 )
@@ -146,11 +148,12 @@ def _scalar_tail_max() -> int:
     return int(os.environ.get("CUTADAPT_TPU_TORCH_SCALAR_TAIL", 512))
 
 
-def _eff_width(bmax: int, width: int, pack2: bool) -> int:
+def _eff_width(bmax: int, width: int, pack2: Optional[bool]) -> int:
     """Exact-wire row width for a batch whose longest window is bmax:
-    rounded up to the packing step (2-bit: 4 bases/byte; 4-bit: 2)
-    with a floor of 16 columns, capped at the bucketed stage width."""
-    step = 4 if pack2 else 2
+    rounded up to the packing step (2-bit: 4 bases/byte; 4-bit: 2; byte
+    lane, pack2 None: 1) with a floor of 16 columns, capped at the
+    bucketed stage width."""
+    step = 4 if pack2 else (1 if pack2 is None else 2)
     w = max(16, (int(bmax) + step - 1) // step * step)
     return min(w, width)
 
@@ -259,6 +262,7 @@ class AdapterTask:
         self.reverse = False
         self.pf_tables = None
         self.spec = None
+        self.byte = False  # the kernel's byte lane (> 16 query classes)
         self.adapters = [adapter]  # flattened identities for routing
         if self.indexed:
             self._init_index(adapter)
@@ -294,12 +298,10 @@ class AdapterTask:
             min_overlap=adapter.min_overlap,
         )
         info = query_class_info(self.spec)
-        if info is None:
-            raise NotImplementedError(
-                "adapters needing more than 16 query classes (the byte "
-                "lane) are not ported yet"
-            )
-        self.lut = info[0]
+        # more than 16 query classes: the kernel's byte lane, one
+        # query_lut code per base (JAX batch_pipeline.py:516-517)
+        self.byte = info is None
+        self.lut = query_lut(self.spec) if self.byte else info[0]
         self.tables = make_tables(self.spec)
         if native.AVAILABLE and isinstance(adapter.kmer_finder, KmerFinder):
             self.pf_tables = native.PrefilterTables(adapter.kmer_finder)
@@ -484,11 +486,12 @@ class AdapterTask:
         return found, qstart, qstop, errors, score
 
     def step(self, enc: torch.Tensor, lengths: torch.Tensor,
-             device: torch.device, pack2: bool,
+             device: torch.device, pack2: Optional[bool],
              wide: bool = False) -> DeviceResult:
         """Upload one encoded batch (host tensors, pinned when the
-        device is CUDA), launch the aligner (``wide``: the (7, B)
-        result), and queue the result's copy back."""
+        device is CUDA), launch the aligner in its lane (``pack2``: 2-bit,
+        4-bit, or None the byte lane; ``wide``: the (7, B) result), and
+        queue the result's copy back."""
         if device.type == "cuda":
             enc = enc.to(device, non_blocking=True)
             lengths = lengths.to(device, non_blocking=True)
@@ -876,20 +879,21 @@ class BatchPipelineEngine:
     def warmup(self, max_len: int, tasks=None) -> None:
         """Build the kernel library and launch every lane each kernel
         task can use once, at the smallest dispatch size (both phases of
-        a linked task; comparers and indexed tasks launch nothing), in
-        the wide result where reads of ``max_len`` or ``want_ref_coords``
-        need it. ``tasks`` defaults to those of the engine's adapter
-        stage."""
+        a linked task; comparers and indexed tasks launch nothing; a
+        byte-lane task only its lane), in the wide result where reads of
+        ``max_len`` or ``want_ref_coords`` need it. ``tasks`` defaults to
+        those of the engine's adapter stage."""
         width = self._bucket_length(max_len)
         wide = self.want_ref_coords or width >= (1 << _QS_BITS)
-        lanes = (True, False) if native.AVAILABLE and _pack2_on() else (False,)
+        packed = (True, False) if native.AVAILABLE and _pack2_on() else (False,)
         if tasks is None:
             tasks = [t for stage in self.stages
                      if isinstance(stage, AdapterStage) for t in stage.tasks]
         for task in tasks:
             for t in task.kernel_tasks():
-                for p2 in lanes:
-                    w_in = width // 4 if p2 else width // 2
+                for p2 in (None,) if t.byte else packed:
+                    w_in = width if p2 is None else (
+                        width // 4 if p2 else width // 2)
                     enc = self._host_tensor(
                         np.zeros((self.min_dp_batch, w_in), np.uint8)
                     )
@@ -904,13 +908,14 @@ class BatchPipelineEngine:
                 pack2: Optional[bool]) -> torch.Tensor:
         """(rows, width/4, width/2 or width) uint8 host tensor of the
         selected windows as 2-bit (pack2 True) or 4-bit (False) packed
-        class ids, or (None) one byte per base for the host comparer."""
+        class ids, or (None) one byte per base, for the byte lane or the
+        host comparer; pinned when it goes to a CUDA device."""
         if pack2 is None:
             w_in = width
         else:
             w_in = width // 4 if pack2 else width // 2
         enc_t = torch.zeros((rows, w_in), dtype=torch.uint8,
-                            pin_memory=self._pinned and pack2 is not None)
+                            pin_memory=self._pinned and not task.comparer)
         enc = enc_t.numpy()
         if native.AVAILABLE:
             native.pad_encode(
@@ -996,10 +1001,11 @@ class BatchPipelineEngine:
         )
         # 2-bit lane split: ACGT-class-only windows ride the 2-bit
         # encoding; the rare N/IUPAC-containing reads take the host
-        # scalar aligner (zero wire) when few, or the 4-bit lane
-        lanes = [(len(sel), False)]  # (count, pack2) over sel's order
+        # scalar aligner (zero wire) when few, or the 4-bit lane. A
+        # byte-lane task sends every candidate to the byte lane.
+        lanes = [(len(sel), None if task.byte else False)]
         host_tail = 0
-        if native.AVAILABLE and _pack2_on():
+        if not task.byte and native.AVAILABLE and _pack2_on():
             clean = native.windows_clean(
                 chunk.buf, c_starts, c_lens, width, task.lut,
                 reverse=task.reverse,

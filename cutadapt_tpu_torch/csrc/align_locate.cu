@@ -5,7 +5,13 @@
 // make_pallas_locate (kernel body :134-459, pl.pallas_call :468) in both
 // of its lanes: BITS=2 reads four 2-bit query class ids per byte (lowest
 // pair = earliest column), BITS=4 two 4-bit ids per byte (low nibble
-// first). Results are the same packed (2, B) int32 words:
+// first). BITS=8, the byte lane, replaces the byte use of the XLA
+// aligner cutadapt_tpu/ops/align_batch.py:make_batch_locate
+// (packed=False): adapters that need more than 16 query classes, which
+// are always compared as ASCII. It reads one query_lut code per byte and
+// tests a match as the code's equality with the row's reference code
+// (encode_reference) where the packed lanes look the class up in the
+// row's class bitmask. Results are the same packed (2, B) int32 words:
 //   row 0 = query_start | query_stop << 14 | found << 28
 //   row 1 = errors | (score + 32768) << 16
 // or, in wide mode (Params::wide), the unpacked (7, B) int32 rows
@@ -82,6 +88,12 @@
 // cells whose cost is above k, which no accepted alignment reads, so
 // `found` agrees everywhere and the other fields agree wherever a match
 // was found.
+//
+// The byte lane moves 4x the 2-bit lane's bytes per base, still far below
+// the card's memory rate for the work each byte carries. A byte-lane
+// adapter has at least 16 distinct letters, so m >= 16 and the lane
+// instantiates only the layouts kernel_layout picks from there on (no
+// 8 x 1 or 8 x 2 register variant).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (see ops/align_cuda.py).
@@ -351,7 +363,8 @@ locate_kernel(const uint8_t* __restrict__ enc,
       up_s = in.s;
       up_o = in.o;
     }
-    const int32_t qbit = 1 << qc;
+    // BITS=8: the query code itself; otherwise its class bit
+    const int32_t qkey = BITS == 8 ? qc : 1 << qc;
 
 #pragma unroll
     for (int q = 0; q < r; ++q) {
@@ -361,8 +374,8 @@ locate_kernel(const uint8_t* __restrict__ enc,
       int32_t rm;
       if constexpr (REG) rm = RM[q];
       else rm = __ldg(tables + i - 1);
-      run = dp_cell(run, dc, ds, dor, pc, ps, po, (rm & qbit) != 0, i,
-                    ins_cost, del_cost);
+      const bool eq = BITS == 8 ? rm == qkey : (rm & qkey) != 0;
+      run = dp_cell(run, dc, ds, dor, pc, ps, po, eq, i, ins_cost, del_cost);
       Cq(q) = run.c;
       Sq(q) = run.s;
       Oq(q) = run.o;
@@ -530,7 +543,11 @@ cudaError_t dispatch(int lanes, int rows, int mode, const uint8_t* enc,
     return launch<BITS, L_, R_, kRegisters>(enc, lengths, tables, out,       \
                                             scratch, p, sb, s);
   if (mode == kRegisters) {
-    ALIGN_VARIANT(8, 1) ALIGN_VARIANT(8, 2) ALIGN_VARIANT(8, 3)
+    // the byte lane's adapters have m >= 16: 8 lanes of 3 rows or more
+    if constexpr (BITS != 8) {
+      ALIGN_VARIANT(8, 1) ALIGN_VARIANT(8, 2)
+    }
+    ALIGN_VARIANT(8, 3)
     ALIGN_VARIANT(8, 4) ALIGN_VARIANT(8, 5) ALIGN_VARIANT(8, 6)
     ALIGN_VARIANT(8, 7) ALIGN_VARIANT(8, 8)
     ALIGN_VARIANT(16, 5) ALIGN_VARIANT(16, 6) ALIGN_VARIANT(16, 7)
@@ -557,7 +574,9 @@ extern "C" {
 // Threads per block; the wrapper sizes shared memory and scratch with it.
 int align_locate_threads() { return kThreads; }
 
-// Launches the aligner on `stream`. bits: 2 or 4. lanes, rows, mode: the
+// Launches the aligner on `stream`. bits: 2, 4 or 8 (the byte lane; the
+// table's first m words are then reference codes, not class masks; m >=
+// 16, so no 8 x 1 or 8 x 2 variant). lanes, rows, mode: the
 // variant (ops/align_cuda.py:kernel_layout): lanes per read, rows per
 // lane, and where a lane keeps its rows (0 registers, 1 shared memory,
 // 2 device scratch of blocks * threads * (3 * rows + 2 * mask words)
@@ -583,6 +602,9 @@ int align_locate_launch(int bits, int lanes, int rows, int mode,
                        p, sb, s);
   if (bits == 4)
     return dispatch<4>(lanes, rows, mode, enc, lengths, tables, out, scratch,
+                       p, sb, s);
+  if (bits == 8)
+    return dispatch<8>(lanes, rows, mode, enc, lengths, tables, out, scratch,
                        p, sb, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -23,8 +23,14 @@ chooses the store at run time: every variant serves both modes.
 
 Queries arrive as (B, Wp) uint8 rows of query class ids
 (:func:`query_class_info`): four 2-bit ids per byte, lowest pair first
-(``pack2=True``), or two 4-bit ids per byte, low nibble first. Bytes past
-a read's length are zero and masked by the length.
+(``pack2=True``), or two 4-bit ids per byte, low nibble first
+(``pack2=False``). Adapters that need more than 16 query classes (an
+adapter of 16 or more distinct letters compared as ASCII) take the byte
+lane (``pack2=None``): one ``query_lut`` code per byte, matched by
+equality with the reference codes of ``encode_reference``, as the JAX
+package's XLA aligner does with ``packed=False``. The lane follows from
+the spec (:attr:`LocateTables.byte`). Bytes past a read's length are
+zero and masked by the length.
 
 The kernel is a wavefront: a group of L lanes holds one read, lane l owns
 a block of r DP rows and runs column j at step j + l, handing the
@@ -56,7 +62,7 @@ import tempfile
 import threading
 import time
 from functools import lru_cache
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -70,6 +76,7 @@ from .align_batch import (
     MATCH_SCORE,
     MISMATCH_SCORE,
     effective_length,
+    encode_reference,
     min_length_table,
     n_counts,
     query_class_info,
@@ -99,16 +106,23 @@ REG_ROWS_MAX = 8
 # where a lane keeps its rows (csrc/align_locate.cu:Mode)
 MODES = ("registers", "shared", "scratch")
 
+# the kernel's lanes by the wrappers' ``pack2`` argument: the counters'
+# names and the kernel's BITS
+LANE_NAMES = {True: "pack2", False: "pack4", None: "byte"}
+LANE_BITS = {True: 2, False: 4, None: 8}
+# the byte lane's adapters have at least 16 distinct letters
+BYTE_LANE_MIN_M = 16
+
 # kernel launches per lane; only the wrapper's launch path adds to them
-LAUNCHES = {"pack2": 0, "pack4": 0}
+LAUNCHES = dict.fromkeys(LANE_NAMES.values(), 0)
 # the same launches by instantiation (template_args), beside LAUNCHES
 VARIANT_LAUNCHES = {}
 # the launches of LAUNCHES that stored the wide (7, B) result, per lane
-WIDE_LAUNCHES = {"pack2": 0, "pack4": 0}
+WIDE_LAUNCHES = dict.fromkeys(LANE_NAMES.values(), 0)
 # rows of the wide result
 WIDE_ROWS = 7
 # calls of the wrapper that ran the plain version (CPU tensors), per lane
-PLAIN_RUNS = {"pack2": 0, "pack4": 0}
+PLAIN_RUNS = dict.fromkeys(LANE_NAMES.values(), 0)
 # the counters are bumped from whichever thread launches
 _COUNT_LOCK = threading.Lock()
 # how the kernel library was obtained: path, build seconds, nvcc log
@@ -170,20 +184,22 @@ def resolve_device(device=None) -> torch.device:
 class LocateTables:
     """One aligner's constants: the spec's scalars and one int32 table
     [row masks (m) | n-counts (m+1) | minimum lengths (k+2)], with its
-    copies on each device it was used on."""
+    copies on each device it was used on. A spec that needs more than 16
+    query classes takes the byte lane (``byte``): the first m words are
+    then the reference codes."""
 
-    __slots__ = ("spec", "m", "k", "n_minlen", "eff_len", "table", "_dev")
+    __slots__ = ("spec", "m", "k", "n_minlen", "eff_len", "byte", "table",
+                 "_dev")
 
     def __init__(self, spec: AlignerSpec):
         m = len(spec.reference)
         if m == 0:
             raise ValueError("the aligner requires a non-empty reference")
         info = query_class_info(spec)
-        if info is None:
-            raise NotImplementedError(
-                "specs needing more than 16 query classes (the byte lane) "
-                "are not ported yet"
-            )
+        # past 16 classes the comparison is always ASCII (IUPAC codes
+        # make at most 16), so the byte lane tests code equality
+        self.byte = info is None
+        rows = encode_reference(spec) if self.byte else info[1]
         minlen = min_length_table(spec)
         self.spec = spec
         self.m = m
@@ -191,7 +207,7 @@ class LocateTables:
         self.n_minlen = len(minlen)
         self.eff_len = effective_length(spec)
         self.table = np.concatenate(
-            [info[1].astype(np.int32), n_counts(spec).astype(np.int32),
+            [rows.astype(np.int32), n_counts(spec).astype(np.int32),
              minlen.astype(np.int32)]
         )
         self._dev = {}
@@ -210,12 +226,13 @@ def make_tables(spec: AlignerSpec) -> LocateTables:
     return LocateTables(spec)
 
 
-def locate(spec: AlignerSpec, enc, lengths, pack2: bool = True,
+def locate(spec: AlignerSpec, enc, lengths, pack2: Optional[bool] = True,
            device=None, wide: bool = False) -> torch.Tensor:
     """Align a batch of packed queries against ``spec``'s reference on
-    ``device`` (None: CUDA). ``enc`` is (B, Wp) uint8 packed class ids,
-    ``lengths`` (B,) integers; numpy arrays or tensors. Returns the
-    packed (2, B) int32 result on ``device``, or the wide (7, B) one."""
+    ``device`` (None: CUDA). ``enc`` is (B, Wp) uint8 packed class ids
+    (or, ``pack2=None``, one query code per byte), ``lengths`` (B,)
+    integers; numpy arrays or tensors. Returns the packed (2, B) int32
+    result on ``device``, or the wide (7, B) one."""
     dev = resolve_device(device)
     enc_t = torch.as_tensor(np.ascontiguousarray(enc), dtype=torch.uint8)
     len_t = torch.as_tensor(np.asarray(lengths)).to(torch.int32)
@@ -224,12 +241,23 @@ def locate(spec: AlignerSpec, enc, lengths, pack2: bool = True,
     )
 
 
+def _check_lane(tables: LocateTables, pack2: Optional[bool]) -> None:
+    if tables.byte != (pack2 is None):
+        raise ValueError(
+            f"lane {LANE_NAMES[pack2]!r} asked for a spec of "
+            f"{'more than' if tables.byte else 'at most'} 16 query "
+            f"classes, which takes the "
+            f"{'byte lane (pack2=None)' if tables.byte else 'packed lanes'}"
+        )
+
+
 def locate_packed(enc: torch.Tensor, lengths: torch.Tensor,
-                  tables: LocateTables, pack2: bool,
+                  tables: LocateTables, pack2: Optional[bool],
                   wide: bool = False) -> torch.Tensor:
     """The kernel's wrapper: launches the CUDA kernel for CUDA tensors,
-    runs :func:`locate_reference` for CPU tensors. ``wide`` selects the
-    (7, B) result."""
+    runs :func:`locate_reference` for CPU tensors. ``pack2``: True the
+    2-bit lane, False the 4-bit lane, None the byte lane (the spec's
+    tables say which it takes). ``wide`` selects the (7, B) result."""
     if enc.dtype != torch.uint8 or enc.dim() != 2:
         raise ValueError(f"enc must be a 2-D uint8 tensor, got {enc.dtype} "
                          f"{tuple(enc.shape)}")
@@ -242,9 +270,10 @@ def locate_packed(enc: torch.Tensor, lengths: torch.Tensor,
         raise ValueError(
             f"enc on {enc.device} but lengths on {lengths.device}"
         )
+    _check_lane(tables, pack2)
     if enc.device.type == "cpu":
         with _COUNT_LOCK:
-            PLAIN_RUNS["pack2" if pack2 else "pack4"] += 1
+            PLAIN_RUNS[LANE_NAMES[pack2]] += 1
         return locate_reference(enc, lengths, tables, pack2, wide=wide)
     if enc.device.type != "cuda":
         raise ValueError(f"unsupported device {enc.device}")
@@ -373,18 +402,23 @@ def template_args(bits: int, lay: KernelLayout) -> tuple:
 
 def instantiations() -> frozenset:
     """Every instantiation the kernel library holds: the variants that
-    kernel_layout picks for some m, in both lanes. Register variants end
-    at LANE_WIDTHS[-1] * REG_ROWS_MAX DP rows; the memory modes take
-    every m beyond."""
+    kernel_layout picks for some m, in both packed lanes, and for some
+    m >= BYTE_LANE_MIN_M in the byte lane. Register variants end at
+    LANE_WIDTHS[-1] * REG_ROWS_MAX DP rows; the memory modes take every m
+    beyond."""
     top = LANE_WIDTHS[-1] * REG_ROWS_MAX
     lays = {kernel_layout(m) for m in range(1, top)}
     lays.add(kernel_layout(top))
     lays.add(kernel_layout(_SMEM_LIMIT))
-    return frozenset(template_args(bits, lay) for bits in (2, 4)
-                     for lay in lays)
+    packed = {template_args(bits, lay) for bits in (2, 4) for lay in lays}
+    byte = {template_args(8, kernel_layout(m))
+            for m in range(BYTE_LANE_MIN_M, top + 1)}
+    byte.add(template_args(8, kernel_layout(_SMEM_LIMIT)))
+    return frozenset(packed | byte)
 
 
-def _launch(enc, lengths, tables: LocateTables, pack2: bool, wide: bool):
+def _launch(enc, lengths, tables: LocateTables, pack2: Optional[bool],
+            wide: bool):
     lib = _library()
     B, Wp = enc.shape
     out = torch.empty((WIDE_ROWS if wide else 2, B), dtype=torch.int32,
@@ -403,7 +437,7 @@ def _launch(enc, lengths, tables: LocateTables, pack2: bool, wide: bool):
     with torch.cuda.device(enc.device):
         stream = torch.cuda.current_stream(enc.device).cuda_stream
         err = lib.align_locate_launch(
-            2 if pack2 else 4, lay.lanes, lay.rows, MODES.index(lay.mode),
+            LANE_BITS[pack2], lay.lanes, lay.rows, MODES.index(lay.mode),
             enc.data_ptr(), lengths.data_ptr(), tab.data_ptr(),
             out.data_ptr(), None if scratch is None else scratch.data_ptr(),
             B, Wp, tables.m, tables.k, int(spec.flags),
@@ -413,8 +447,8 @@ def _launch(enc, lengths, tables: LocateTables, pack2: bool, wide: bool):
         )
     if err != 0:
         raise RuntimeError(f"align_locate kernel launch failed: CUDA error {err}")
-    key = template_args(2 if pack2 else 4, lay)
-    lane = "pack2" if pack2 else "pack4"
+    key = template_args(LANE_BITS[pack2], lay)
+    lane = LANE_NAMES[pack2]
     with _COUNT_LOCK:
         LAUNCHES[lane] += 1
         VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
@@ -449,12 +483,15 @@ def _to_int32_bits(v: torch.Tensor) -> torch.Tensor:
 
 
 def locate_reference(enc: torch.Tensor, lengths: torch.Tensor,
-                     tables: LocateTables, pack2: bool,
+                     tables: LocateTables, pack2: Optional[bool],
                      wide: bool = False) -> torch.Tensor:
     """The aligner in plain PyTorch: vectorised over the batch, a loop
     over columns, and the in-column deletion cascade as the TPU kernel's
-    (min,+) Hillis-Steele ladder cut at ceil(log2(k+2)) passes. Returns
-    the packed (2, B) result, or with ``wide`` the (7, B) rows."""
+    (min,+) Hillis-Steele ladder cut at ceil(log2(k+2)) passes. The byte
+    lane (``pack2=None``) matches a query code with a row's reference
+    code by equality, the packed lanes by the row's class bitmask.
+    Returns the packed (2, B) result, or with ``wide`` the (7, B)
+    rows."""
     B = enc.shape[0]
     empty = torch.nonzero(lengths == 0).flatten()
     if len(empty) > 1:
@@ -537,8 +574,8 @@ def locate_reference(enc: torch.Tensor, lengths: torch.Tensor,
         return ncnt[torch.clamp(idx, 0, m).long()]
 
     limit = min(m, k + 2) if del_cost >= 1 else m
-    per_byte = 4 if pack2 else 2
-    bits = 8 // per_byte
+    bits = LANE_BITS[pack2]
+    per_byte = 8 // bits
     enc_i = enc.to(i32)
     n_cols = Wp * per_byte
     if B:  # columns outside every read's (min_n, max_n] are no-ops
@@ -570,7 +607,10 @@ def locate_reference(enc: torch.Tensor, lengths: torch.Tensor,
             (1 << bits) - 1
         )
         active = (j > min_n) & (j <= max_n)  # (1, B)
-        eq = ((rm >> qc[None, :]) & 1) != 0  # (m, B)
+        if pack2 is None:
+            eq = rm == qc[None, :]  # (m, B)
+        else:
+            eq = ((rm >> qc[None, :]) & 1) != 0
         mismatch = (~eq).to(i32)
 
         v0 = state[:, 0:1] + v0_inc  # row 0: (3, 1, B)

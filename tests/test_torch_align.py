@@ -23,7 +23,11 @@ from cutadapt_tpu.ops.align_batch import AlignerSpec as JaxSpec
 from cutadapt_tpu.ops.align_batch import make_batch_locate
 from cutadapt_tpu.ops.align_pallas import make_pallas_locate
 from cutadapt_tpu_torch.ops import align_cuda
-from cutadapt_tpu_torch.ops.align_batch import AlignerSpec, query_class_info
+from cutadapt_tpu_torch.ops.align_batch import (
+    encode_reference,
+    query_class_info,
+    query_lut,
+)
 
 import torch_fixtures as fx
 from test_torch_spec import CASES
@@ -200,55 +204,87 @@ def test_kernel_source_instantiates_what_the_layout_picks():
             re.findall(r"ALIGN_VARIANT\((\d+), (\d+)\)", src)}
     mem = {(int(L), align_cuda.MODES.index(mode.lower())) for L, mode in
            re.findall(r"launch<BITS, (\d+), 0, k(Shared|Scratch)>", src)}
-    got = {(bits, L, R, 0) for L, R in regs for bits in (2, 4)}
-    got |= {(bits, L, 0, mode) for L, mode in mem for bits in (2, 4)}
+    # the register variants that the byte lane (m >= 16) never reaches sit
+    # in a block of their own
+    packed_only = re.search(r"if constexpr \(BITS != 8\) \{([^}]*)\}", src)
+    small = {(int(L), int(R)) for L, R in re.findall(
+        r"ALIGN_VARIANT\((\d+), (\d+)\)", packed_only.group(1))}
+    assert small == {(8, 1), (8, 2)}
+    got = {(bits, L, R, 0) for L, R in regs for bits in (2, 4, 8)
+           if bits != 8 or (L, R) not in small}
+    got |= {(bits, L, 0, mode) for L, mode in mem for bits in (2, 4, 8)}
+    assert "dispatch<8>" in src
     assert got == align_cuda.instantiations()
-    assert len(got) == 36
+    assert len(got) == 52
 
 
 def test_parity_fixtures_reach_every_instantiation():
     """The adapters that chip_smoke.py and the card tests run take every
-    instantiation of the kernel, in both lanes."""
+    instantiation of the kernel, in both packed lanes and, byte-lane
+    adapters of lanes x rows - 1 bp, in the byte lane."""
     specs = fx.variant_specs() + fx.long_specs() + [fx.very_long_spec()]
     reached = {align_cuda.template_args(
         bits, align_cuda.kernel_layout(len(s.reference)))
         for s in specs for bits in (2, 4)}
+    byte_specs = fx.byte_variant_specs()
+    assert all(align_cuda.make_tables(s).byte for s in byte_specs)
+    reached |= {align_cuda.template_args(
+        8, align_cuda.kernel_layout(len(s.reference))) for s in byte_specs}
     assert reached == align_cuda.instantiations()
+    assert len(byte_specs) == 16
+    for s in byte_specs[:-2]:
+        lay = align_cuda.kernel_layout(len(s.reference))
+        assert lay.lanes * lay.rows == len(s.reference) + 1
     for s in fx.variant_specs():
         lay = align_cuda.kernel_layout(len(s.reference))
         assert lay.lanes * lay.rows == len(s.reference) + 1
         assert fx.variant_read_length(s) >= 2 * len(s.reference)
 
 
-@pytest.mark.parametrize("pack2", [False, True], ids=["4bit", "2bit"])
-@pytest.mark.parametrize("index", [0, 3, 9],
+@pytest.mark.parametrize("pack2", [False, True, None],
+                         ids=["4bit", "2bit", "byte"])
+@pytest.mark.parametrize("index", [0, 1, 2],
                          ids=["back", "front", "prefix"])
 def test_bound_counts_the_cells_the_kernel_runs(index, pack2):
     """chip_smoke.dp_work counts the active columns, cells and matching
-    cells that the kernel's loops run, read by read."""
+    cells that the kernel's loops run, read by read; the byte lane's match
+    is one compare of the query code with the reference code."""
     import chip_smoke
 
-    spec = fx.parity_specs()[index]
+    if pack2 is None:
+        spec = fx.byte_lane_specs()[index]
+    else:
+        spec = fx.parity_specs()[(0, 3, 9)[index]]
     tables = align_cuda.make_tables(spec)
     m, k = tables.m, tables.k
     raw, enc, lens = fx.random_batch(spec, np.random.RandomState(5), 40,
                                      48, pack2)
-    cls_lut, row_masks = query_class_info(spec)
+    if pack2 is None:
+        ref = encode_reference(spec)
+        lut = query_lut(spec)
+
+        def matches(byte):
+            return int((ref == lut[byte]).sum())
+    else:
+        cls_lut, row_masks = query_class_info(spec)
+
+        def matches(byte):
+            return sum(int(rm >> int(cls_lut[byte])) & 1 for rm in row_masks)
+    per_byte = {True: 4, False: 2, None: 1}[pack2]
     cols = eq = 0
     for r in range(len(lens)):
         n = int(lens[r])
         max_n = n if spec.start_in_query else min(n, m + k)
         min_n = 0 if spec.stop_in_query else max(0, n - m - k)
-        for j in range(min_n + 1, min(max_n, enc.shape[1] * (4 if pack2
-                                                              else 2)) + 1):
+        for j in range(min_n + 1, min(max_n, enc.shape[1] * per_byte) + 1):
             cols += 1
-            qc = int(cls_lut[raw[r, j - 1]])
-            eq += sum(int(rm >> qc) & 1 for rm in row_masks)
+            eq += matches(raw[r, j - 1])
     got = chip_smoke.dp_work(enc, lens, tables, pack2)
     assert got[:3] == (cols, cols * m, eq)
     assert 0 < eq < cols * m
-    assert got[3] == (cols * chip_smoke.OPS_PER_COLUMN
-                      + cols * m * chip_smoke.OPS_PER_CELL
+    per_cell = (chip_smoke.OPS_PER_CELL_BYTE if pack2 is None
+                else chip_smoke.OPS_PER_CELL)
+    assert got[3] == (cols * chip_smoke.OPS_PER_COLUMN + cols * m * per_cell
                       + (cols * m - eq) * chip_smoke.OPS_PER_MISMATCH)
 
 
@@ -280,12 +316,76 @@ def test_wrapper_checks_its_inputs():
         align_cuda.resolve_device("meta")
 
 
-def test_byte_lane_is_not_ported():
-    # 16 distinct reference characters compared as ASCII: 17 classes
-    spec = AlignerSpec(reference="ACGTRYKMSWBDHVNX", max_error_rate=0.1)
+def _jax_byte_lane(spec, enc, lens, wide):
+    """The JAX package's XLA aligner in its byte use (packed=False) on the
+    same query codes: (found, qstart, qstop, errors, score[, ref_start,
+    ref_stop])."""
+    xla = make_batch_locate(JaxSpec(**spec._asdict()), packed=False)(
+        enc, lens)
+    keys = ("found", "query_start", "query_stop", "errors", "score")
+    if wide:
+        keys += ("ref_start", "ref_stop")
+    return tuple(np.asarray(xla[k]) for k in keys)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["packed", "wide"])
+@pytest.mark.parametrize(
+    "index", range(len(fx.byte_lane_specs())),
+    ids=[f"{i}-{len(s.reference)}-{s.flags}-{s.indel_cost}"
+         for i, s in enumerate(fx.byte_lane_specs())],
+)
+def test_byte_lane_matches_jax(index, wide):
+    """Specs of more than 16 query classes take the byte lane: one
+    query_lut code per byte, held to the XLA aligner's byte use
+    (make_batch_locate(packed=False)) on the same codes, in the packed
+    (2, B) and the wide (7, B) store, and to the C++ scalar aligner.
+    Tolerance: found equal everywhere, the other fields where found."""
+    spec = fx.byte_lane_specs()[index]
     assert query_class_info(spec) is None
-    with pytest.raises(NotImplementedError, match="byte lane"):
-        align_cuda.make_tables(spec)
+    tables = align_cuda.make_tables(spec)
+    assert tables.byte
+    rng = np.random.RandomState(700 + index)
+    raw, enc, lens = fx.random_batch(spec, rng, 96, 64, None,
+                                     **fx.placement(spec))
+    assert enc.shape == (96, 64)
+    got = align_cuda.locate(spec, enc, lens, pack2=None, device="cpu",
+                            wide=wide)
+    assert got.shape == (7 if wide else 2, 96)
+    unpack = align_cuda.unpack_wide if wide else align_cuda.unpack_result
+    got = unpack(got.numpy())
+    assert got[0].any()
+    assert fx.first_difference(got, _jax_byte_lane(spec, enc, lens,
+                                                   wide)) is None
+    assert fx.first_difference(got[:5], fx.scalar_locate(spec, raw,
+                                                         lens)) is None
+
+
+def test_byte_lane_long_window_matches_jax():
+    """A byte-lane window past 2**14 bp in the wide store, against the
+    XLA aligner's byte use on all 7 fields."""
+    spec = fx.byte_lane_specs()[0]
+    rng = np.random.RandomState(16400)
+    raw, enc, lens = fx.long_batch(spec, rng, 3, (16400, 16500), None)
+    got = align_cuda.locate(spec, enc, lens, pack2=None, device="cpu",
+                            wide=True)
+    got = align_cuda.unpack_wide(got.numpy())
+    assert (lens >= 1 << 14).all() and got[0].any()
+    assert fx.first_difference(got, _jax_byte_lane(spec, enc, lens,
+                                                   True)) is None
+
+
+def test_lane_follows_the_spec():
+    """A spec of more than 16 query classes takes the byte lane and only
+    it; a spec of at most 16 takes only the packed lanes."""
+    byte = align_cuda.make_tables(fx.byte_lane_specs()[0])
+    packed = align_cuda.make_tables(CASES[0])
+    enc = torch.zeros((4, 8), dtype=torch.uint8)
+    lens = torch.zeros(4, dtype=torch.int32)
+    for tables, lanes in ((byte, (True, False)), (packed, (None,))):
+        for pack2 in lanes:
+            with pytest.raises(ValueError, match="16 query classes"):
+                align_cuda.locate_packed(enc, lens, tables, pack2)
+    assert align_cuda.locate_packed(enc, lens, byte, None).shape == (2, 4)
 
 
 def test_kernel_ab_loads_another_trees_own_wrapper(monkeypatch):

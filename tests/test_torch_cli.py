@@ -237,10 +237,10 @@ def test_unknown_device_fails(port_env, tmp_path, caplog):
     assert "could not start" in caplog.text
 
 
-# an adapter of 16 distinct letters compared as ASCII (-N): 17 query
-# classes, the byte lane, which the engine does not run yet
-BYTE_LANE = ["-a", "ACGTRYKMXSWBDHVN", "-N"]
-BYTE_LANE_REASON = "more than 16 query classes"
+# an adapter with the 'anywhere' search parameter, which the engine, as
+# the JAX package's, has no task for
+ANYWHERE = ["-a", "ACGTACGT;anywhere"]
+ANYWHERE_REASON = "'anywhere' search parameter"
 
 
 def test_fallback_counted_on_refused_case_only(port_env, tmp_path):
@@ -252,18 +252,17 @@ def test_fallback_counted_on_refused_case_only(port_env, tmp_path):
 
     data = golden_args([], "", "small.fastq")[-1]
     for which, main in (("port", cli.main), ("jax", jax_cli.main)):
-        main(BYTE_LANE + ["-o", str(tmp_path / which), data])
+        main(ANYWHERE + ["-o", str(tmp_path / which), data])
     assert read(tmp_path / "port") == read(tmp_path / "jax")
     assert accel.FALLBACK_COUNT == fallbacks + 1
-    assert BYTE_LANE_REASON in accel.LAST_FALLBACK
+    assert ANYWHERE_REASON in accel.LAST_FALLBACK
 
 
 # options whose pipeline the engine refuses, with the reason it gives
 REFUSED_OPTIONS = [
-    (BYTE_LANE, BYTE_LANE_REASON),
     (["--revcomp", "--poly-a"],
      "a host stage after the --revcomp stage has no engine form"),
-    (["-a", "ACGTACGT;anywhere"], "'anywhere' search parameter"),
+    (ANYWHERE, ANYWHERE_REASON),
     (["--action=mask", "--poly-a"], "after a mask/lowercase adapter stage"),
     (["-a", "^TTAGACATAT...GGGGGG", "--action=crop"],
      "linked adapters with --action=crop"),
@@ -347,18 +346,33 @@ def test_output_side_options_ride_the_engine(port_env, tmp_path, options):
     assert len(outputs["port"]) > 1
 
 
-def test_paired_end_is_refused(port_env, tmp_path, caplog):
-    """Paired-end runs ride the engine (tests/test_torch_paired.py), but
-    a paired run of an adapter in the byte lane is refused yet, with its
-    reason."""
+def test_paired_end_is_refused(port_env, tmp_path):
+    """A paired run of byte-lane adapters on both reads, once refused,
+    rides the engine under require: both outputs and the --json report
+    equal what the JAX package's engine writes (CUTADAPT_TPU_BATCH=1),
+    with no fallback."""
     port_env.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
+    port_env.setenv("CUTADAPT_TPU_BATCH", "1")
     data = golden_args([], "", "paired.1.fastq")[-1]
-    with pytest.raises(SystemExit) as e:
-        cli.main(BYTE_LANE + ["-o", str(tmp_path / "1.fastq"),
-                              "-p", str(tmp_path / "2.fastq"), data,
-                              data.replace("paired.1", "paired.2")])
-    assert e.value.code == 1
-    assert BYTE_LANE_REASON in caplog.text
+    outputs = {}
+    for which, main in (("port", cli.main), ("jax", jax_cli.main)):
+        d = tmp_path / which
+        d.mkdir()
+        _restart_adapter_names(port_env)
+        fallbacks, runs = accel.FALLBACK_COUNT, plain_runs()
+        main(["-N", "-a", "TTAGACATATRYKMXSWBDHVN",
+              "-A", "CAGTGGAGTARYKMXSWBDHVN",
+              "-o", str(d / "1.fastq"), "-p", str(d / "2.fastq"),
+              "--json", str(d / "report.json"), data,
+              data.replace("paired.1", "paired.2")])
+        if which == "port":
+            assert accel.FALLBACK_COUNT == fallbacks
+            assert align_cuda.PLAIN_RUNS["byte"] > 0 and plain_runs() > runs
+        outputs[which] = {n: read(d / n) for n in ("1.fastq", "2.fastq")}
+        outputs[which]["report"] = _json_report(d / "report.json")
+    assert outputs["port"] == outputs["jax"]
+    counts = outputs["port"]["report"]["read_counts"]
+    assert counts["read1_with_adapter"] and counts["read2_with_adapter"]
 
 
 def test_quality_trimming_of_fasta_is_refused(port_env, tmp_path, caplog):

@@ -130,6 +130,55 @@ def test_every_register_variant_on_card(card, index, pack2):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "index", range(len(fx.byte_variant_specs())),
+    ids=[f"{len(s.reference)}-{s.flags}" for s in fx.byte_variant_specs()],
+)
+def test_every_byte_lane_instantiation_on_card(card, index):
+    """Each instantiation of the byte lane (adapters of more than 16
+    query classes), packed and wide, against the plain version and the
+    C++ scalar aligner: one launch of each store, on its variant."""
+    spec = fx.byte_variant_specs()[index]
+    tables = align_cuda.make_tables(spec)
+    assert tables.byte
+    raw, enc, lens = fx.byte_variant_batch(
+        spec, np.random.RandomState(90 + index))
+    align_cuda.reset_launch_counters()
+    got = _held_to_plain_and_scalar(spec, raw, enc, lens, None)
+    assert got[0].any()
+    enc_d = torch.from_numpy(enc).cuda()
+    len_d = torch.from_numpy(lens).cuda()
+    wide = align_cuda.locate_packed(enc_d, len_d, tables, None, wide=True)
+    plain = align_cuda.locate_reference(enc_d, len_d, tables, None, wide=True)
+    assert fx.first_difference(
+        align_cuda.unpack_wide(wide.cpu().numpy()),
+        align_cuda.unpack_wide(plain.cpu().numpy())) is None
+    key = align_cuda.template_args(8, align_cuda.kernel_layout(tables.m))
+    assert align_cuda.VARIANT_LAUNCHES == {key: 2}
+    assert align_cuda.LAUNCHES["byte"] == 2
+    assert align_cuda.WIDE_LAUNCHES["byte"] == 1
+
+
+@pytest.mark.cuda
+def test_byte_lane_long_reads_on_card(card):
+    """The byte lane's wide store on reads of 2**14 bp or more."""
+    spec = fx.byte_lane_specs()[0]
+    raw, enc, lens = fx.long_batch(spec, np.random.RandomState(16401), 16,
+                                   (16400, 17000), None)
+    tables = align_cuda.make_tables(spec)
+    enc_d = torch.from_numpy(enc).cuda()
+    len_d = torch.from_numpy(lens).cuda()
+    got = align_cuda.unpack_wide(align_cuda.locate_packed(
+        enc_d, len_d, tables, None, wide=True).cpu().numpy())
+    plain = align_cuda.locate_reference(enc_d, len_d, tables, None, wide=True)
+    assert got[0].any()
+    assert fx.first_difference(
+        got, align_cuda.unpack_wide(plain.cpu().numpy())) is None
+    assert fx.first_difference(got[:5], fx.scalar_locate(spec, raw,
+                                                         lens)) is None
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("pack2", [False, True], ids=["4bit", "2bit"])
 def test_block_edge_adapters_on_card(card, pack2):
     """DP rows ending one short of, at, and one past the flagship
@@ -214,7 +263,7 @@ def _engine_on_card_and_cpu(stages_fn, filters, data, records=1000):
         outs[device] = list(tbp.process_chunks_pipelined(engine, chunks))
         if device == "cuda":
             launches = dict(align_cuda.LAUNCHES)
-            assert align_cuda.PLAIN_RUNS == {"pack2": 0, "pack4": 0}
+            assert not any(align_cuda.PLAIN_RUNS.values())
     assert len(outs["cuda"]) == len(outs["cpu"]) == len(chunks)
     for (out, stats), (wout, wstats) in zip(outs["cuda"], outs["cpu"]):
         assert out == wout
@@ -300,7 +349,7 @@ def test_cli_golden_on_card(card, monkeypatch, tmp_path, case):
     with open(out, "rb") as got, open(fx.golden_path(expected), "rb") as want:
         assert got.read() == want.read()
     assert accel.FALLBACK_COUNT == fallbacks
-    assert align_cuda.PLAIN_RUNS == {"pack2": 0, "pack4": 0}
+    assert not any(align_cuda.PLAIN_RUNS.values())
     data_launches = sum(align_cuda.LAUNCHES.values()) - sum(warm)
     if case_id in fx.NO_ALIGNER_RUN:
         assert data_launches == 0
@@ -336,7 +385,7 @@ def _card_main(monkeypatch, args):
     align_cuda.reset_launch_counters()
     cli.main([str(a) for a in args])
     assert accel.FALLBACK_COUNT == fallbacks
-    assert align_cuda.PLAIN_RUNS == {"pack2": 0, "pack4": 0}
+    assert not any(align_cuda.PLAIN_RUNS.values())
     return dict(align_cuda.LAUNCHES)
 
 
@@ -374,6 +423,31 @@ def test_revcomp_golden_on_card(card, monkeypatch, tmp_path, name):
     _card_main(monkeypatch, args)
     for out, exp in zip(outs, expected):
         _same_file(out, exp)
+
+
+@pytest.mark.cuda
+def test_byte_lane_cli_on_card(card, monkeypatch, tmp_path):
+    """-N -a with an adapter of 17 query classes through the port's main
+    on the card under require: only the byte lane launches, and the
+    output and the --json report's counts equal the port's host path."""
+    from cutadapt_tpu_torch import cli
+
+    reads = tmp_path / "in.fastq"
+    reads.write_bytes(fx.make_byte_lane_reads(20000))
+    args = ["-N", "-e", "0.1", "-a", fx.BYTE_LANE_ADAPTER]
+    outs = {}
+    for mode in ("0", "require"):
+        out, rep = tmp_path / f"{mode}.fastq", tmp_path / f"{mode}.json"
+        run = args + ["-o", out, "--json", rep, reads]
+        if mode == "0":
+            monkeypatch.setenv("CUTADAPT_TPU_TORCH_BATCH", "0")
+            cli.main([str(a) for a in run])
+        else:
+            launches = _card_main(monkeypatch, run)
+        outs[mode] = (out.read_bytes(), fx.json_report(rep)["read_counts"])
+    assert outs["require"] == outs["0"]
+    assert outs["0"][1]["read1_with_adapter"] > 4000
+    assert launches["byte"] > 1 and launches["pack2"] == launches["pack4"] == 0
 
 
 class _Spy:
@@ -546,6 +620,6 @@ def test_revcomp_dispatch_reaches_kernel_on_card(card, monkeypatch):
     assert len(spy.calls) == in_submit
     assert {(rc, dev) for rc, dev, *_ in spy.calls} == {
         (False, "cuda"), (True, "cuda")}
-    assert align_cuda.PLAIN_RUNS == {"pack2": 0, "pack4": 0}
+    assert not any(align_cuda.PLAIN_RUNS.values())
     assert 700 < int(stats["is_rc"].sum()) < 1300
     spy.held_to_plain()

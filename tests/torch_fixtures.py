@@ -343,11 +343,11 @@ def make_long_reads(n_reads: int, seed: int = 16384,
 
 
 def long_batch(spec: AlignerSpec, rng: np.random.RandomState, B: int,
-               lengths, pack2: bool):
+               lengths, pack2: Optional[bool]):
     """(raw bytes, packed class ids, lengths) of B reads of lengths uniform
-    in ``lengths``, random ACGT (a third with one N in the 4-bit lane), a
-    third with a copy of the spec's reference at a uniform position."""
-    cls_lut, _ = query_class_info(spec)
+    in ``lengths``, random ACGT (a third with one N in the 4-bit and the
+    byte lane), a third with a copy of the spec's reference at a uniform
+    position."""
     lens = rng.randint(lengths[0], lengths[1] + 1, B).astype(np.int32)
     width = -(-int(lens.max()) // 4) * 4
     raw = np.frombuffer(b"ACGT", np.uint8)[
@@ -359,13 +359,7 @@ def long_batch(spec: AlignerSpec, rng: np.random.RandomState, B: int,
         if not pack2:
             raw[i + 1 if i + 1 < B else i, rng.randint(0, lens[i])] = ord("N")
     raw[np.arange(width)[None, :] >= lens[:, None]] = 0
-    cls = cls_lut[raw]
-    if pack2:
-        enc = (cls[:, 0::4] | (cls[:, 1::4] << 2) | (cls[:, 2::4] << 4)
-               | (cls[:, 3::4] << 6))
-    else:
-        enc = cls[:, 0::2] | (cls[:, 1::2] << 4)
-    return raw, enc.astype(np.uint8), lens
+    return raw, encode_rows(spec, raw, pack2), lens
 
 
 UMI_LEN = 8
@@ -806,19 +800,123 @@ def very_long_spec() -> AlignerSpec:
                     False, Where.BACK, 0.1, 1, 3)])[0]
 
 
-def random_batch(spec: AlignerSpec, rng: np.random.RandomState, B: int,
-                 L: int, pack2: bool, at_start: bool = False,
-                 at_end: bool = False):
-    """(raw bytes (B, L), packed class ids (B, L/4 or L/2), lengths (B,)).
+def encode_rows(spec: AlignerSpec, raw: np.ndarray,
+                pack2: Optional[bool]) -> np.ndarray:
+    """Row-padded read bytes as the aligner's lane takes them: four 2-bit
+    class ids per byte (pack2 True), two 4-bit ones (False), or one
+    ``query_lut`` code per byte (None, the byte lane)."""
+    if pack2 is None:
+        return query_lut(spec)[raw]
+    cls = query_class_info(spec)[0][raw]
+    if pack2:
+        enc = (cls[:, 0::4] | (cls[:, 1::4] << 2) | (cls[:, 2::4] << 4)
+               | (cls[:, 3::4] << 6))
+    else:
+        enc = cls[:, 0::2] | (cls[:, 1::2] << 4)
+    return enc.astype(np.uint8)
 
-    Reads draw from ``ACGTNacgt``; a third of them carry a spliced
+
+# --- the byte lane: adapters of more than 16 query classes ------------------
+
+# 16 distinct letters compared as ASCII (-N): with "any other byte", 17
+# query classes, past what the 4-bit lane's class ids hold
+BYTE_LANE_LETTERS = "ACGTRYKMXSWBDHVN"
+# chip_smoke.py's byte-lane CLI phase: a 20 bp adapter of 17 classes
+BYTE_LANE_ADAPTER = BYTE_LANE_LETTERS + "ACGT"
+
+
+def _byte_lane_reference(rng: np.random.RandomState, m: int) -> str:
+    """m >= 16 bases: the 16 letters in a seeded order, then repeats."""
+    letters = list(BYTE_LANE_LETTERS)
+    head = "".join(rng.permutation(letters))
+    return head + "".join(rng.choice(letters, m - len(letters)))
+
+
+def byte_lane_specs() -> List[AlignerSpec]:
+    """Byte-lane specs of each kernel task kind's flags (3' and 5'
+    adapters, anchored prefix and suffix, non-internal and anywhere), all
+    compared as ASCII with more than 16 query classes."""
+    rng = np.random.RandomState(17)
+    return _specs([
+        (BYTE_LANE_ADAPTER, False, Where.BACK, 0.1, 1, 3),
+        (_byte_lane_reference(rng, 24), False, Where.FRONT, 0.1, 1, 3),
+        (_byte_lane_reference(rng, 20), False, Where.PREFIX, 0.15, 1, 10),
+        (_byte_lane_reference(rng, 20), False, Where.SUFFIX, 0.15, 1, 10),
+        (BYTE_LANE_ADAPTER, False, Where.BACK_NOT_INTERNAL, 0.1, 1, 3),
+        (BYTE_LANE_ADAPTER, False, Where.ANYWHERE, 0.1, 1, 3),
+        (BYTE_LANE_ADAPTER, False, Where.BACK, 0.1, 100000, 3),
+    ])
+
+
+def byte_variant_specs() -> List[AlignerSpec]:
+    """One byte-lane adapter per instantiation of the byte lane: lanes x
+    rows - 1 bp for each register variant that an adapter of 16 bp or
+    more reaches (every lane's block full), a 300 bp one (rows in shared
+    memory) and a 4,000 bp one (device scratch); 3' adapters, and in turn
+    a prefix, a suffix or an anywhere adapter for the register
+    variants."""
+    rng = np.random.RandomState(18)
+    kinds = (Where.PREFIX, Where.SUFFIX, Where.ANYWHERE)
+    variants = sorted({(lay.lanes, lay.rows) for lay in map(
+        kernel_layout, range(len(BYTE_LANE_LETTERS), 256))
+        if lay.mode == "registers"})
+    cases = [(_byte_lane_reference(rng, lanes * rows - 1), False,
+              Where.BACK if v % 2 == 0 else kinds[v // 2 % 3], 0.15, 1, 3)
+             for v, (lanes, rows) in enumerate(variants)]
+    cases += [(_byte_lane_reference(rng, m), False, Where.BACK, 0.1, 1, 3)
+              for m in (300, 4000)]
+    return _specs(cases)
+
+
+def byte_variant_batch(spec: AlignerSpec, rng: np.random.RandomState):
+    """A parity batch for a byte_variant_specs adapter: 1,024 reads of at
+    least twice its length for a register variant, 512 (64 past 1,000
+    bp, where the scalar check is the slow part) of 512 bp beyond."""
+    m = len(spec.reference)
+    if m < 256:
+        return random_batch(spec, rng, 1024, variant_read_length(spec), None,
+                            **placement(spec))
+    return random_batch(spec, rng, 64 if m > 1000 else 512, 512, None)
+
+
+def make_byte_lane_reads(n_reads: int, seed: int = 17,
+                         read_len: int = READ_LEN) -> bytes:
+    """FASTQ records ``@r<i>`` of ``read_len`` random ACGT bases, phred
+    2-40: a quarter carry a prefix of BYTE_LANE_ADAPTER (at least 3 bp,
+    the run's minimum overlap) at a uniform position with up to 2
+    substitutions, and 3% carry one to three N."""
+    rng = np.random.RandomState(seed)
+    n, L = n_reads, read_len
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    seqs = bases[rng.randint(0, 4, (n, L), dtype=np.uint8)]
+    ad = np.frombuffer(BYTE_LANE_ADAPTER.encode(), np.uint8)
+    for i in np.flatnonzero(rng.rand(n) < ADAPTER_FRACTION):
+        pos = rng.randint(0, L - 3)
+        take = min(len(ad), L - pos)
+        seqs[i, pos : pos + take] = ad[:take]
+        for _ in range(rng.randint(0, 3)):
+            seqs[i, pos + rng.randint(take)] = bases[rng.randint(4)]
+    for i in np.flatnonzero(rng.rand(n) < 0.03):
+        seqs[i, rng.randint(0, L, rng.randint(1, 4))] = ord("N")
+    quals = rng.randint(35, 74, (n, L), dtype=np.uint8)
+    return fastq_records(seqs, np.full(n, L), quals)
+
+
+def random_batch(spec: AlignerSpec, rng: np.random.RandomState, B: int,
+                 L: int, pack2: Optional[bool], at_start: bool = False,
+                 at_end: bool = False):
+    """(raw bytes (B, L), packed class ids (B, L/4 or L/2) or, in the byte
+    lane (pack2 None), query codes (B, L), lengths (B,)).
+
+    Reads draw from ``ACGTNacgt`` (and, in the byte lane, also from the
+    IUPAC letters of BYTE_LANE_ADAPTER); a third of them carry a spliced
     adapter copy with one substitution, at the read's start if
     ``at_start`` (as a prefix adapter needs it), at its end, the read
     L bp long, if ``at_end`` (as a suffix adapter needs it). For the 2-bit
     lane every byte whose class id does not fit in 2 bits becomes 'A', so
     the batch is what the engine's clean-window split would send there."""
-    cls_lut, _ = query_class_info(spec)
-    raw = rng.choice(np.frombuffer(b"ACGTNacgt", np.uint8), size=(B, L))
+    alphabet = b"ACGTNacgt" + (b"RYKMSWX" if pack2 is None else b"")
+    raw = rng.choice(np.frombuffer(alphabet, np.uint8), size=(B, L))
     ad = np.frombuffer(spec.reference.encode(), np.uint8)
     for i in range(0, B, 3):
         if at_end:
@@ -833,15 +931,9 @@ def random_batch(spec: AlignerSpec, rng: np.random.RandomState, B: int,
     if at_end:
         lens[::3] = L
     if pack2:
-        raw[cls_lut[raw] > 3] = ord("A")
+        raw[query_class_info(spec)[0][raw] > 3] = ord("A")
     raw[np.arange(L)[None, :] >= lens[:, None]] = 0
-    cls = cls_lut[raw]
-    if pack2:
-        enc = (cls[:, 0::4] | (cls[:, 1::4] << 2) | (cls[:, 2::4] << 4)
-               | (cls[:, 3::4] << 6))
-    else:
-        enc = cls[:, 0::2] | (cls[:, 1::2] << 4)
-    return raw, enc.astype(np.uint8), lens
+    return raw, encode_rows(spec, raw, pack2), lens
 
 
 def scalar_locate(spec: AlignerSpec, raw: np.ndarray, lens: np.ndarray):
