@@ -4,7 +4,8 @@ Smoke run of the PyTorch/CUDA port (cutadapt_tpu_torch) on one NVIDIA GPU.
 
 Phases, each of which must pass:
 
-1. build: compile the aligner kernel library from csrc/ with nvcc;
+1. build: compile the aligner's and the scatter kernel's libraries from
+   csrc/ with nvcc, one process per source, started together;
 2. kernel parity: both lanes of the kernel (2-bit and 4-bit class ids)
    against the plain PyTorch version on the same CUDA tensors and against
    the C++ scalar aligner, on a 13-spec matrix of adapter kinds and flags
@@ -103,11 +104,29 @@ Phases, each of which must pass:
    the tests/torch_as_jax.py plugin under
    CUTADAPT_TPU_TORCH_BATCH=require; pytest must exit 0 with no fallback
    and no plain run, and kernel launches counted (the subprocess's own
-   counted window, read from the plugin's line).
+   counted window, read from the plugin's line);
+14. the statistics reducer and the device mesh: (a) the scatter kernel
+   (csrc/stats_scatter.cu) against its plain version, error 0, on 33,000
+   removal events into a 128 x 64 buffer, 131,072 written lengths, a
+   131,072-entry mask and an empty batch, with its time, bound and the
+   index_put_ call's time; (b) the flagship file and phase 8's paired
+   TruSeq files through main with CUTADAPT_TPU_TORCH_DEVICE_STATS=1,
+   every file and the --json report equal to the run without it, one
+   fold, scatter launches counted; (c) a mesh of 4 shards on the first
+   min(4, cards) cards, repeated in order (set by replacing
+   accel._setup_mesh, as the CPU tests set 8 shards of the CPU), on the
+   flagship file and the four pipeline shapes of
+   __graft_entry__.py:_dryrun_real_pipeline (torch_fixtures.
+   write_mesh_pairs): files and report equal to the one-device run,
+   each lane's launches 4 times the one-device run's (warm-ups apart),
+   every shard launched, no dispatch left unsharded, reads/s and the
+   flagship's idle share; (d) where the machine has 2 or more cards, (c)
+   again through CUTADAPT_TPU_TORCH_DEVICES=all.
 
 Launch counters are set to 0 just before each counted window (the main
 path's warm pass, the dirty lane, each counted CLI run, the golden
-cases, the counted runs of phases 6 to 12, the golden suites' process)
+cases, the counted runs of phases 6 to 12, the golden suites' process,
+each run of phase 14)
 and read just after; each
 lane the window carries must have been launched there. Prints the
 card's name and power limit, one JSON line with every kernel's numbers
@@ -117,7 +136,10 @@ phases 6 to 11 under "host_stages", "linked", "paired" (by side),
 "revcomp" (by orientation), "long_reads" and "output_side"; the wide
 launches under "wide_launches"; the golden suites' launches under
 "golden_suites_launches"; the byte lane's entry with phase 12's numbers
-under "byte_lane"), the seconds of each phase, and as the last line
+under "byte_lane"; the launches per shard of phase 14's mesh under
+"shard_launches" and by configuration under "mesh"; the scatter kernel's
+entry with phase 14's numbers), the seconds of each phase, and as the
+last line
 {"ok": true, "device": {...}}.
 
 The workload and the parity matrix come from tests/torch_fixtures.py.
@@ -1019,6 +1041,383 @@ def golden_suites_phase() -> dict:
     return counts
 
 
+# phase 14: the statistics reducer and the device mesh
+SCATTER_HIST2D = (128, 64)
+N_SCATTER_REMOVALS = 33000
+N_SCATTER_EVENTS = 131072
+MESH_SHARDS = 4
+MESH_PAIRS = 700
+
+
+def scatter_phase():
+    """14 (a): each entry point of the scatter kernel at the shapes of the
+    reducer's path against its plain version on the same CUDA tensors
+    (tolerance: exact): removal events into a 128 x 64 buffer, written
+    lengths into a 1-D one, a mask's popcount, and an empty batch (no
+    launch). Times from CUDA events (the kernel in a CUDA graph, the
+    plain version and the library call, index_put_ with
+    accumulate=True, on the stream); the bound from the bytes the
+    function must move: each event read once, the buffer read and
+    written once, at the card's memory rate."""
+    import torch
+
+    from cutadapt_tpu_torch.ops import stats_cuda as sc
+
+    rng = np.random.RandomState(14)
+    dev = torch.device("cuda", 0)
+    R, C = SCATTER_HIST2D
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    n2, n1 = N_SCATTER_REMOVALS, N_SCATTER_EVENTS
+    removed = np.minimum(rng.geometric(0.08, n2), R - 1)
+    errors = np.minimum(rng.geometric(0.6, n2) - 1, 3)
+    written = rng.randint(0, 101, n1)
+    mask = (rng.rand(n1) < 0.25).astype(np.int32)
+    cases = [
+        ("hist2d", (R, C), [t(removed), t(errors), t(np.ones(n2))],
+         sc.scatter_add_2d, sc.scatter_add_2d_reference),
+        ("hist1d", (R,), [t(written), t(np.ones(n1))],
+         sc.scatter_add_1d, sc.scatter_add_1d_reference),
+        ("count", (), [t(mask)], sc.count_add, sc.count_add_reference),
+        ("hist2d", (R, C), [t(np.zeros(0))] * 3,
+         sc.scatter_add_2d, sc.scatter_add_2d_reference),
+    ]
+    out = []
+    for name, shape, ev, kernel, plain in cases:
+        n = ev[0].shape[0]
+        got = torch.zeros(shape, dtype=torch.int32, device=dev)
+        want = torch.zeros(shape, dtype=torch.int32, device=dev)
+        before = sc.LAUNCHES[name]
+        kernel(got, *ev)
+        plain(want, *ev)
+        torch.cuda.synchronize()
+        if sc.LAUNCHES[name] != before + (1 if n else 0):
+            fail(f"scatter {name}: {sc.LAUNCHES[name] - before} launches "
+                 f"for a batch of {n} events")
+        err = int((got - want).abs().max()) if got.numel() else 0
+        if err or not torch.equal(got, want):
+            fail(f"scatter {name} at {n} events into {shape}: the kernel "
+                 f"differs from the plain version by up to {err}")
+        nums = dict(entry=name, events=n, buffer=list(shape),
+                    max_abs_err=err)
+        if n:
+            buf = torch.zeros(shape, dtype=torch.int32, device=dev)
+            idx = tuple(e.long() for e in ev[:-1])
+            if name == "count":
+                def library():
+                    buf.add_(ev[0].sum())
+            else:
+                def library():
+                    buf.index_put_(idx, ev[-1], accumulate=True)
+            nbytes = 4 * n * len(ev) + 2 * 4 * max(1, got.numel())
+            nums.update(
+                ms=cuda_ms(lambda: kernel(buf, *ev), 50, graph=True),
+                stream_ms=cuda_ms(lambda: kernel(buf, *ev), 50),
+                plain_ms=cuda_ms(lambda: plain(buf, *ev), 20),
+                library_ms=cuda_ms(library, 20),
+                bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+                host_us_per_call=host_us(lambda: kernel(buf, *ev), 50),
+            )
+            nums["x_bound"] = nums["ms"] / nums["bound_ms"]
+        out.append(nums)
+        log(f"scatter {name}: {n} events into {list(shape)} equal the plain "
+            f"version" + (
+                f"; {nums['ms'] * 1e3:.2f} us per launch (graph; "
+                f"{nums['stream_ms'] * 1e3:.2f} us on the stream, "
+                f"{nums['host_us_per_call']:.1f} us of host time per call), "
+                f"bound {nums['bound_ms'] * 1e3:.3f} us (bytes), "
+                f"{nums['x_bound']:.1f}x; plain {nums['plain_ms'] * 1e3:.1f} "
+                f"us, index_put_ {nums['library_ms'] * 1e3:.1f} us"
+                if n else " (no launch)"))
+    return out
+
+
+class MainRuns:
+    """Runs of cli.main for phase 14, each in a directory of its own with
+    its own environment, counted: launch counters at 0 just before the
+    call, the engine's warm-up launches (made inside _setup_device) kept
+    apart, shard and scatter counters read just after."""
+
+    def __init__(self, tmp):
+        self.tmp = tmp
+        self.n = 0
+
+    def __call__(self, args_of, env, label, record=None):
+        import cutadapt_tpu_torch.adapters as port_adapters
+        import cutadapt_tpu_torch.batch_pipeline as bp
+        import torch_fixtures as fx
+        from cutadapt_tpu_torch import accel, cli
+        from cutadapt_tpu_torch.ops import align_cuda, stats_cuda
+        from cutadapt_tpu_torch.parallel import stats
+
+        self.n += 1
+        d = os.path.join(self.tmp, f"run{self.n}")
+        os.makedirs(d)
+        rep = os.path.join(d, "report.json")
+        keys = ("CUTADAPT_TPU_TORCH_DEVICES", "CUTADAPT_TPU_TORCH_DEVICE_STATS",
+                "CUTADAPT_TPU_TORCH_BATCH")
+        saved = {k: os.environ.get(k) for k in keys}
+        os.environ.update(CUTADAPT_TPU_TORCH_BATCH="require", **env)
+        for k in keys:
+            if k not in env and k != "CUTADAPT_TPU_TORCH_BATCH":
+                os.environ.pop(k, None)
+        warm = {}
+        setup = accel._setup_device
+
+        def counted_setup(*a, **kw):
+            engines = setup(*a, **kw)
+            warm.update(align_cuda.LAUNCHES)
+            return engines
+
+        port_adapters._adapter_counter = [0]
+        fallbacks = accel.FALLBACK_COUNT
+        folds = stats.FOLDS
+        accel._setup_device = counted_setup
+        if record is not None:
+            bp.locate_packed = record
+        align_cuda.reset_launch_counters()
+        stats_cuda.reset_launch_counters()
+        bp.reset_shard_counters()
+        try:
+            t0 = time.perf_counter()
+            cli.main(args_of(d) + ["--json", rep])
+            dt = time.perf_counter() - t0
+        finally:
+            accel._setup_device = setup
+            if record is not None:
+                bp.locate_packed = record.fn
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if accel.FALLBACK_COUNT != fallbacks:
+            fail(f"{label}: fell back to the host path "
+                 f"({accel.LAST_FALLBACK})")
+        files = {}
+        for name in sorted(os.listdir(d)):
+            if name != "report.json":
+                with open(os.path.join(d, name), "rb") as f:
+                    files[name] = f.read()
+        lanes = ("pack2", "pack4", "byte")
+        return dict(
+            files=files, report=fx.json_report(rep), seconds=dt,
+            launches={k: align_cuda.LAUNCHES[k] - warm.get(k, 0)
+                      for k in lanes},
+            warmup_launches={k: warm.get(k, 0) for k in lanes},
+            shard_launches=dict(bp.SHARD_LAUNCHES),
+            unsharded=bp.UNSHARDED_DISPATCHES,
+            scatter_launches=dict(stats_cuda.LAUNCHES),
+            scatter_plain_runs=sum(stats_cuda.PLAIN_RUNS.values()),
+            folds=stats.FOLDS - folds,
+        )
+
+
+def same_run(label, got, want) -> None:
+    """Every file and the --json report of two runs equal."""
+    if sorted(got["files"]) != sorted(want["files"]):
+        fail(f"{label}: files {sorted(got['files'])} differ from "
+             f"{sorted(want['files'])}")
+    for name, w in want["files"].items():
+        g = got["files"][name]
+        if g != w:
+            pos = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                       min(len(g), len(w)))
+            fail(f"{label}: {name} differs at byte {pos} ({len(g)} vs "
+                 f"{len(w)} bytes)")
+    if got["report"] != want["report"]:
+        diff = [k for k in want["report"]
+                if got["report"].get(k) != want["report"][k]]
+        fail(f"{label}: the --json report differs in {diff}")
+    if got["scatter_plain_runs"]:
+        fail(f"{label}: the scatter kernel's plain version ran on the card")
+
+
+def reducer_mesh_phase(data, pairs, clock_hz, sms) -> dict:
+    """Phase 14 (b)-(d): the reducer forced on one card, the mesh of
+    MESH_SHARDS shards on the first min(MESH_SHARDS, cards) cards,
+    repeated in order, and where the machine has 2 or more cards the
+    mesh of CUTADAPT_TPU_TORCH_DEVICES=all, each held to the one-device
+    run on every file and the report."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import cutadapt_tpu_torch.batch_pipeline as bp
+    import torch_fixtures as fx
+    from cutadapt_tpu_torch import accel
+    from cutadapt_tpu_torch.parallel import Mesh
+
+    result = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        run = MainRuns(tmp)
+        flag = os.path.join(tmp, "flagship.fastq")
+        with open(flag, "wb") as f:
+            f.write(data)
+        p1, p2 = (os.path.join(tmp, f"truseq.{k}.fastq") for k in (1, 2))
+        for path, side in zip((p1, p2), pairs):
+            with open(path, "wb") as f:
+                f.write(side)
+        n_flag = data.count(b"\n") // 4
+        n_pairs = pairs[0].count(b"\n") // 4
+
+        def flagship(d):
+            return ["--quiet", "-a", fx.ADAPTER, "-e", "0.1", "-O", "3",
+                    "-o", os.path.join(d, "out.fastq"), flag]
+
+        def truseq(d):
+            return ["--quiet", "-a", fx.TRUSEQ_R1, "-A", fx.TRUSEQ_R2,
+                    "-q", "20",
+                    "-m", "20", "-o", os.path.join(d, "out.1.fastq"),
+                    "-p", os.path.join(d, "out.2.fastq"), p1, p2]
+
+        # (b) the reducer forced on one card
+        env1 = {"CUTADAPT_TPU_TORCH_DEVICES": "1"}
+        forced = {}
+        for label, args_of, n in (("flagship", flagship, n_flag),
+                                  ("paired TruSeq", truseq, n_pairs)):
+            base = run(args_of, env1, f"reducer {label}")
+            red = run(args_of, {**env1, "CUTADAPT_TPU_TORCH_DEVICE_STATS": "1"},
+                      f"reducer {label}")
+            same_run(f"reducer {label}", red, base)
+            if base["folds"] or sum(base["scatter_launches"].values()):
+                fail(f"reducer {label}: the reducer ran without a mesh or "
+                     f"CUTADAPT_TPU_TORCH_DEVICE_STATS=1")
+            if red["folds"] != 1 or red["scatter_launches"]["hist2d"] <= 0:
+                fail(f"reducer {label}: folds {red['folds']}, scatter "
+                     f"launches {red['scatter_launches']}")
+            if red["launches"] != base["launches"]:
+                fail(f"reducer {label}: aligner launches {red['launches']} "
+                     f"differ from {base['launches']}")
+            forced[label] = dict(
+                scatter_launches=red["scatter_launches"],
+                reads_per_sec=n / red["seconds"],
+                reads_per_sec_without=n / base["seconds"],
+            )
+            log(f"reducer forced on one card, {label}: files and report "
+                f"equal to the run without it; scatter launches "
+                f"{red['scatter_launches']}, one fold; "
+                f"{n / red['seconds']:.1f} reads/s against "
+                f"{n / base['seconds']:.1f} without")
+        unused = [e for e in forced["flagship"]["scatter_launches"]
+                  if not any(f["scatter_launches"][e] for f in forced.values())]
+        if unused:
+            fail(f"reducer: the scatter entry points {unused} never launched")
+        result["forced"] = forced
+
+        # (c) MESH_SHARDS shards on the first min(MESH_SHARDS, cards)
+        # cards, repeated: the mesh set as the CPU tests set it
+        cards = min(MESH_SHARDS, torch.cuda.device_count())
+        mesh_devices = [torch.device("cuda", i % cards)
+                        for i in range(MESH_SHARDS)]
+
+        def patched_mesh(device):
+            bp.set_shard_mesh(Mesh(mesh_devices))
+
+        shapes_dir = os.path.join(tmp, "pairs")
+        os.makedirs(shapes_dir)
+        files = fx.write_mesh_pairs(shapes_dir, n_pairs=MESH_PAIRS)
+        configs = [("flagship file", flagship, n_flag)] + [
+            (shape, (lambda s: lambda d: fx.mesh_shape_args(s, files, d))(
+                shape), MESH_PAIRS) for shape in fx.MESH_SHAPES]
+        singles = {}
+        shard_totals = {}
+        per_config = {}
+        setup_mesh = accel._setup_mesh
+        for label, args_of, n in configs:
+            singles[label] = base = run(args_of, env1, f"mesh {label}")
+            rec = None
+            if label == "flagship file":
+                rec = Recorder(bp.locate_packed,
+                               warming=lambda: accel.RUN_TIMES[
+                                   "device_ready"] is None)
+            accel._setup_mesh = patched_mesh
+            try:
+                got = run(args_of, {}, f"mesh {label}", record=rec)
+            finally:
+                accel._setup_mesh = setup_mesh
+                bp.set_shard_mesh(None)
+            same_run(f"mesh {label}", got, base)
+            want = {k: MESH_SHARDS * v for k, v in base["launches"].items()}
+            if got["launches"] != want:
+                fail(f"mesh {label}: launches {got['launches']}, not "
+                     f"{MESH_SHARDS} x the one-device run's "
+                     f"{base['launches']}")
+            if got["unsharded"]:
+                fail(f"mesh {label}: {got['unsharded']} dispatches did not "
+                     f"divide over the mesh")
+            if got["folds"] != 1:
+                fail(f"mesh {label}: the reducer folded {got['folds']} times")
+            for i, c in got["shard_launches"].items():
+                shard_totals[i] = shard_totals.get(i, 0) + c
+            per_config[label] = dict(
+                launches=got["launches"], one_device_launches=base["launches"],
+                warmup_launches=got["warmup_launches"],
+                shard_launches=got["shard_launches"],
+                scatter_launches=got["scatter_launches"],
+                reads_per_sec=n / got["seconds"],
+                one_device_reads_per_sec=n / base["seconds"],
+            )
+            log(f"mesh of {MESH_SHARDS} shards on {cards} card(s), {label}: "
+                f"files and report equal to the one-device run; launches "
+                f"{got['launches']} = {MESH_SHARDS} x {base['launches']}, "
+                f"warm-up {got['warmup_launches']}, per shard "
+                f"{got['shard_launches']}, scatter {got['scatter_launches']}; "
+                f"{n / got['seconds']:.1f} reads/s against "
+                f"{n / base['seconds']:.1f} on one device")
+            if rec is not None:
+                nums = kernel_numbers(rec, True, clock_hz, sms)
+                if nums["max_abs_err"]:
+                    fail("mesh flagship: the kernel differs from the plain "
+                         "version")
+                busy = nums["run_kernel_ms"] / 1e3 / got["seconds"]
+                per_config[label].update(
+                    idle_share=1 - busy, device_ms=nums["run_kernel_ms"],
+                    per_shape=[{k: d[k] for k in PER_SHAPE_KEYS}
+                               for d in nums["per_shape"]])
+                log(f"mesh flagship: 2-bit kernel {shape_line(nums)}; device "
+                    f"time {nums['run_kernel_ms']:.4f} ms against "
+                    f"{got['seconds']:.3f} s of wall: idle share "
+                    f"{1 - busy:.6f}")
+        if sorted(shard_totals) != list(range(MESH_SHARDS)) or min(
+                shard_totals.values()) <= 0:
+            fail(f"mesh: launches per shard {shard_totals}")
+        result["mesh"] = dict(shards=MESH_SHARDS, cards=cards,
+                              shard_launches=shard_totals,
+                              configs=per_config)
+
+        # (d) one shard per card, through the user's variable
+        if torch.cuda.device_count() >= 2:
+            all_totals = {}
+            for label, args_of, n in configs:
+                got = run(args_of, {"CUTADAPT_TPU_TORCH_DEVICES": "all"},
+                          f"all cards {label}")
+                same_run(f"all cards {label}", got, singles[label])
+                for i, c in got["shard_launches"].items():
+                    all_totals[i] = all_totals.get(i, 0) + c
+            if len(all_totals) != torch.cuda.device_count() or min(
+                    all_totals.values()) <= 0:
+                fail(f"all cards: launches per shard {all_totals}")
+            result["all_cards"] = all_totals
+            log(f"mesh over all {torch.cuda.device_count()} cards "
+                f"(CUTADAPT_TPU_TORCH_DEVICES=all): every run equal to the "
+                f"one-device run; launches per card {all_totals}")
+        else:
+            result["all_cards"] = None
+            log("mesh over all cards (CUTADAPT_TPU_TORCH_DEVICES=all): not "
+                "run, this machine has one card")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if bp.UNSHARDED_DISPATCHES:
+        fail(f"{bp.UNSHARDED_DISPATCHES} dispatches did not divide over "
+             f"the mesh")
+    return result
+
+
 def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2):
     """The DP work this batch's data needs: each read runs its active
     columns (min_n, min(max_n, width)] over rows 0..m. Returns (active
@@ -1185,8 +1584,31 @@ def main() -> int:
     if not native.AVAILABLE:
         fail("the native host library (native/hostops.cpp) did not build")
 
-    # 1. build
-    align_cuda.build_library()
+    # 1. build: one nvcc per source, started together
+    from cutadapt_tpu_torch.ops import stats_cuda
+
+    build_errors = []
+
+    def build(lib):
+        try:
+            lib.build_library()
+        except Exception as e:  # reported below, with the compiler's log
+            build_errors.append(f"{lib.__name__}: {e}")
+
+    threads = [threading.Thread(target=build, args=(lib,))
+               for lib in (align_cuda, stats_cuda)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if build_errors:
+        fail("the kernel build failed: " + "; ".join(build_errors))
+    log(f"scatter kernel library built in "
+        f"{stats_cuda.BUILD_INFO['seconds']:.1f} s: "
+        f"{stats_cuda.BUILD_INFO['path']}")
+    for line in stats_cuda.BUILD_INFO["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas (stats_scatter): {line.strip()}")
     info = align_cuda.BUILD_INFO
     log(f"kernel library built in {info['seconds']:.1f} s "
         f"({'cached' if info['cached'] else 'nvcc'}): {info['path']}")
@@ -1325,7 +1747,6 @@ def main() -> int:
         else "R2",
         ["R1", "R2"], lanes=(True, False),
     )
-    del pairs
     phase_done("8 paired")
     # 9. revcomp amplicons: the forward and the rc dispatch of each chunk
     # both launch from submit
@@ -1425,6 +1846,11 @@ def main() -> int:
     # 13. the JAX package's golden suites through the port, unedited
     suites = golden_suites_phase()
     phase_done("13 golden suites")
+    # 14. the statistics reducer and the device mesh
+    scatter = scatter_phase()
+    mesh14 = reducer_mesh_phase(data, pairs, clock_mhz * 1e6, sms)
+    del pairs
+    phase_done("14 reducer and mesh")
     busy = {}
     path_lanes = {}
     for path, rec, launches, lanes, wall in (
@@ -1473,6 +1899,13 @@ def main() -> int:
     log(f"byte_lane_reads_per_sec {rps12}")
     log(f"byte_lane_startup_ms {STARTUP_MS['byte lane']}")
     log(f"byte_lane_idle_share {1 - busy['byte_lane']}")
+    mesh_flag = mesh14["mesh"]["configs"]["flagship file"]
+    log(f"reducer_forced_reads_per_sec "
+        f"{mesh14['forced']['flagship']['reads_per_sec']}")
+    log(f"mesh_reads_per_sec {mesh_flag['reads_per_sec']}")
+    log(f"mesh_one_device_reads_per_sec "
+        f"{mesh_flag['one_device_reads_per_sec']}")
+    log(f"mesh_idle_share {mesh_flag['idle_share']}")
 
     src = "cutadapt_tpu_torch/csrc/align_locate.cu"
     kernels = []
@@ -1530,6 +1963,31 @@ def main() -> int:
             kernel["wide_launches"]["long_reads"] = \
                 kernel["long_reads"]["wide_launches"]
         kernel["golden_suites_launches"] = suites["launches"][lane]
+        kernel["mesh"] = {
+            label: dict(launches=c["launches"][lane],
+                        one_device_launches=c["one_device_launches"][lane])
+            for label, c in mesh14["mesh"]["configs"].items()}
+    # launches per shard of the mesh phase (all lanes of each dispatch)
+    for kernel in kernels:
+        kernel["shard_launches"] = mesh14["mesh"]["shard_launches"]
+    # the scatter kernel: its path is phase 14's; the reported time, bound
+    # and library call are those of the removal histogram's shape
+    top = scatter[0]
+    forced_flag = mesh14["forced"]["flagship"]["scatter_launches"]
+    kernels.append(dict(
+        name="stats_scatter", route="cuda",
+        source="cutadapt_tpu_torch/csrc/stats_scatter.cu",
+        replaces="cutadapt_tpu/parallel/stats.py:54",
+        launches=sum(forced_flag.values()), parity="ok",
+        max_abs_err=max(d["max_abs_err"] for d in scatter),
+        ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=top["library_ms"],
+        launches_by_entry=forced_flag,
+        per_entry=scatter,
+        reducer_forced=mesh14["forced"],
+        mesh={label: dict(scatter_launches=c["scatter_launches"])
+              for label, c in mesh14["mesh"]["configs"].items()},
+    ))
     log(f"reads_per_sec {rps}")
     log("seconds per phase " + json.dumps(
         {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))

@@ -51,7 +51,13 @@ Environment (all read per run):
   the engine, ``require`` the engine with refusals as errors;
 - ``CUTADAPT_TPU_TORCH_DEVICE``: unset means CUDA; ``cpu`` runs the
   aligner's plain PyTorch version (the tests);
-- ``CUTADAPT_TPU_TORCH_CHUNK_BYTES``: the size of the input chunks.
+- ``CUTADAPT_TPU_TORCH_CHUNK_BYTES``: the size of the input chunks;
+- ``CUTADAPT_TPU_TORCH_DEVICES``: the shard mesh (_setup_mesh): ``all``
+  (the default) every visible card, ``1`` no mesh, ``N`` the first N
+  cards, or under ``CUTADAPT_TPU_TORCH_DEVICE=cpu`` N shards of the CPU;
+- ``CUTADAPT_TPU_TORCH_DEVICE_STATS``: the statistics reducer
+  (_make_stats_reducer): unset means on exactly when a mesh is active,
+  ``1`` on without one, ``0`` off.
 
 Once the engine path is chosen it runs on the device or fails: there
 is no card, the kernel does not build or a launch fails, the run ends
@@ -693,9 +699,38 @@ for _b_i, _b in enumerate(b"ACGT"):
     _ADJ_CODE[_b] = _b_i
 
 
-def _record_removals(end, removed, errors):
-    """Fold a removal event batch into EndStatistics, per unique
-    (length, errors)."""
+def _stats_reducer_on() -> bool:
+    """Device-reduced statistics apply by themselves with an active
+    shard mesh (each shard bins its own events, one sum across shards at
+    fold); CUTADAPT_TPU_TORCH_DEVICE_STATS=1 forces them on one device,
+    =0 disables them."""
+    from .batch_pipeline import get_shard_mesh
+
+    env = os.environ.get("CUTADAPT_TPU_TORCH_DEVICE_STATS")
+    return env != "0" and (env == "1" or get_shard_mesh() is not None)
+
+
+def _make_stats_reducer(device):
+    """A DeviceStatsReducer on the active mesh, or on ``device`` without
+    one, where _stats_reducer_on(); else None (the host-side fold)."""
+    if not _stats_reducer_on():
+        return None
+    from .batch_pipeline import get_shard_mesh
+    from .parallel.stats import DeviceStatsReducer
+
+    return DeviceStatsReducer(get_shard_mesh(), device=device)
+
+
+def _record_removals(end, removed, errors, reducer=None):
+    """Fold a removal event batch into EndStatistics: through the device
+    reducer when given, else on the host per unique (length, errors)."""
+    if reducer is not None:
+        def fold(hist, end=end):
+            for ln, er in zip(*np.nonzero(hist)):
+                end.record_removal(int(ln), int(er), int(hist[ln, er]))
+
+        reducer.add_hist2d(("rm", id(end)), removed, errors, fold)
+        return
     base = int(errors.max(initial=0)) + 1
     enc = removed.astype(np.int64) * base + errors
     uniq, counts = np.unique(enc, return_counts=True)
@@ -703,31 +738,77 @@ def _record_removals(end, removed, errors):
         end.record_removal(int(p // base), int(p % base), int(c))
 
 
-def _record_adjacent(end, adj_bytes):
+def _record_adjacent(end, adj_bytes, reducer=None):
     """Adjacent-base tallies (byte 0 and non-ACGT count as '')."""
     codes = _ADJ_CODE[np.asarray(adj_bytes, np.uint8)]
+    if reducer is not None:
+        def fold(h, end=end):
+            for i, c in enumerate(h[:5]):
+                if c:
+                    end.adjacent_bases[_ADJ_KEYS[i]] += int(c)
+
+        reducer.add_hist1d(("adj", id(end)), codes, fold)
+        return
     cnt = np.bincount(codes, minlength=5)
     for i, c in enumerate(cnt[:5]):
         if c:
             end.adjacent_bases[_ADJ_KEYS[i]] += int(c)
 
 
-def _record_written(wl, side, values=None, hist=None):
+def _record_written(wl, side, reducer=None, values=None, hist=None):
     """Written-length histogram for one side: from the kept reads'
-    lengths (``values``) or their bincount (``hist``)."""
+    lengths (``values``) or their bincount (``hist``); on the reducer,
+    a histogram rides as the values it counts."""
+    if reducer is not None:
+        def fold(h, wl=wl, side=side):
+            wl.add_histogram(h, side=side)
+
+        if values is None:
+            values = _hist_to_values(hist)
+        reducer.add_hist1d(("wl", id(wl), side), values, fold)
+        return
     if hist is None:
         hist = np.bincount(values)
     wl.add_histogram(hist, side=side)
 
 
-def _record_filtered(step, mask):
-    """Filter counter for one step: the reads it newly dropped."""
+def _hist_to_values(hist):
+    return np.repeat(np.arange(len(hist)), hist)
+
+
+def _record_filtered(step, mask, reducer=None):
+    """Filter counter for one step: the reads it newly dropped (a
+    popcount on the reducer)."""
+    if reducer is not None:
+        def fold(n, step=step):
+            step._filtered += n
+
+        reducer.add_count(("flt", id(step)), mask, fold)
+        return
     step._filtered += int(mask.sum())
 
 
-def _apply_side_stats(stats, stages, cutter, written_lengths):
+def _record_adapter_events(cutter, task, sub, asf, rem, err, adj, reducer):
+    """The removal and adjacent-base statistics of one task's match
+    events, credited to the adapter each read matched (``sub``: an
+    indexed task's sub-adapter, else 0), per adapter end."""
+    for s in (np.unique(sub) if len(sub) else ()):
+        m = sub == s
+        astats = cutter.adapter_statistics[task.adapters[int(s)]]
+        fm = m & asf
+        bm = m & ~asf
+        if fm.any():
+            _record_removals(astats.front, rem[fm], err[fm], reducer)
+        if bm.any():
+            _record_removals(astats.back, rem[bm], err[bm], reducer)
+            _record_adjacent(astats.back, adj[bm], reducer)
+
+
+def _apply_side_stats(stats, stages, cutter, written_lengths, reducer=None):
     """Fold one chunk's engine stats for one side into the host
-    pipeline objects. Returns total_bp of the side."""
+    pipeline objects (with ``reducer``, the mergeable histograms and
+    counters accumulate on the device instead and fold once at the end
+    of the run). Returns total_bp of the side."""
     for si, n in stats.get("quality_trimmed", {}).items():
         stages[si].modifier.trimmed_bases += n
     for si, removed in stats.get("poly_a_removed", {}).items():
@@ -745,31 +826,23 @@ def _apply_side_stats(stats, stages, cutter, written_lengths):
             task = stage.tasks[ev["task"]]
             sub = np.asarray(ev["sub"])
             asf = np.asarray(ev["as_front"], bool)
-            rem = np.asarray(ev["removed"])
-            err = np.asarray(ev["errors"])
-            adj = np.asarray(ev["adjacent"])
-            # a linked adapter's two events per round credit
-            # reverse_complemented once, by the primary (per-read) row
-            prim = (
-                np.asarray(ev["primary"], bool) if "primary" in ev else None
+            if ev.get("rc"):
+                # a linked adapter's two events per round credit
+                # reverse_complemented once, by the primary (per-read) row
+                prim = (np.asarray(ev["primary"], bool) if "primary" in ev
+                        else np.ones(len(sub), bool))
+                for s in (np.unique(sub) if len(sub) else ()):
+                    cutter.adapter_statistics[
+                        task.adapters[int(s)]
+                    ].reverse_complemented += int(((sub == s) & prim).sum())
+            _record_adapter_events(
+                cutter, task, sub, asf, np.asarray(ev["removed"]),
+                np.asarray(ev["errors"]), np.asarray(ev["adjacent"]),
+                reducer,
             )
-            # an indexed task credits the adapter each read matched
-            for s in (np.unique(sub) if len(sub) else ()):
-                m = sub == s
-                astats = cutter.adapter_statistics[task.adapters[int(s)]]
-                if ev.get("rc"):
-                    astats.reverse_complemented += int(
-                        m.sum() if prim is None else (m & prim).sum()
-                    )
-                fm = m & asf
-                bm = m & ~asf
-                if fm.any():
-                    _record_removals(astats.front, rem[fm], err[fm])
-                if bm.any():
-                    _record_removals(astats.back, rem[bm], err[bm])
-                    _record_adjacent(astats.back, adj[bm])
     if written_lengths is not None:
-        _record_written(written_lengths, 1, hist=stats["written_lengths"])
+        _record_written(written_lengths, 1, reducer,
+                        hist=stats["written_lengths"])
     return stats["total_bp"]
 
 
@@ -1138,19 +1211,48 @@ def _input_format(infile) -> Optional[str]:
     return None
 
 
+def _setup_mesh(device) -> None:
+    """Shard the DP dispatches over devices like ``device``: the
+    engine is data-parallel over reads. CUTADAPT_TPU_TORCH_DEVICES says
+    how many take part: ``all`` (the default) every visible card, ``1``
+    none (no mesh), ``N`` the first N cards; fewer than 2 means no mesh.
+    On the CPU (CUTADAPT_TPU_TORCH_DEVICE=cpu), ``N`` is N shards of the
+    CPU and ``all`` is one."""
+    import torch
+
+    from .batch_pipeline import set_shard_mesh
+    from .parallel.mesh import Mesh
+
+    want = os.environ.get("CUTADAPT_TPU_TORCH_DEVICES", "all")
+    if want == "1":
+        set_shard_mesh(None)
+        return
+    if device.type == "cpu":
+        devices = [device] * (1 if want == "all" else int(want))
+    else:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+        if want != "all":
+            devices = devices[: int(want)]
+    set_shard_mesh(Mesh(devices) if len(devices) > 1 else None)
+
+
 def _setup_device(*sides, extra_tasks=()):
     """Build one engine for each (stages, filters[, engine keywords]) of
     ``sides``, all on one device: CUTADAPT_TPU_TORCH_DEVICE, unset
-    meaning CUDA. On CUDA, pin the device index, build the kernel
-    library, then warm every engine before any drive thread starts,
-    launching each lane of each kernel task once (wide where the engine
-    wants adapter-side coordinates); ``extra_tasks`` are tasks that run
-    outside the engines' stages (--pair-adapters, paired --revcomp).
-    Failures raise DeviceError; there is no fallback to the host path
-    from here."""
+    meaning CUDA, and set the shard mesh (_setup_mesh). On CUDA, pin the
+    device index, build the kernel libraries (the scatter kernel's where
+    the statistics reducer will run), then warm every engine before any
+    drive thread starts, launching each lane of each kernel task once on
+    every device of the mesh (wide where the engine wants adapter-side
+    coordinates); ``extra_tasks`` are tasks that run outside the
+    engines' stages (--pair-adapters, paired --revcomp). Failures, on
+    any shard, raise DeviceError; there is no fallback to fewer shards,
+    to one device or to the host path from here."""
     import torch
 
     from .batch_pipeline import BatchPipelineEngine
+    from .ops import stats_cuda
     from .ops.align_cuda import build_library, resolve_device
 
     name = os.environ.get("CUTADAPT_TPU_TORCH_DEVICE") or "cuda"
@@ -1160,6 +1262,9 @@ def _setup_device(*sides, extra_tasks=()):
             build_library()
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+        _setup_mesh(device)
+        if device.type == "cuda" and _stats_reducer_on():
+            stats_cuda.build_library()
         engines = [
             BatchPipelineEngine(side[0], side[1], device=device,
                                 **(side[2] if len(side) > 2 else {}))
@@ -1236,6 +1341,7 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
         want_ref_coords=side["wildcard"] is not None,
         qual_cap_base=zero_cap,
     )))
+    reducer = _make_stats_reducer(engine.device)
     RUN_TIMES["device_ready"] = time.perf_counter()
 
     from .batch_pipeline import CutStage
@@ -1374,21 +1480,26 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
                 _merge_route(per_file, untrimmed_file[0], untrimmed_file,
                              untrimmed)
             else:
-                _record_filtered(demux, untrimmed)
+                _record_filtered(demux, untrimmed, reducer)
             lens_out = we - ws
             for (ff, writes_fasta), mask in per_file.values():
                 if mask.any():
                     ff.write(render(chunk, ws, we, mask, stats, writes_fasta))
-                    _record_written(demux._statistics, 1,
+                    _record_written(demux._statistics, 1, reducer,
                                     values=lens_out[mask])
         # routed filter outputs (--too-short-output etc.): records a
         # filter dropped, in input order, with their state at drop time
         for out, newly in zip(filter_files, stats["filter_dropped_masks"]):
             if out is not None and newly.any():
                 out[0].write(render(chunk, ws, we, newly, stats, out[1]))
-        for f, count in zip(filters, stats["filter_counts"]):
-            f.step._filtered += count
-        total_bp += _apply_side_stats(stats, stages, cutter, written_lengths)
+        if reducer is None:
+            for f, count in zip(filters, stats["filter_counts"]):
+                f.step._filtered += count
+        else:
+            for f, newly in zip(filters, stats["filter_dropped_masks"]):
+                _record_filtered(f.step, newly, reducer)
+        total_bp += _apply_side_stats(stats, stages, cutter, written_lengths,
+                                      reducer)
         n += stats["n"]
         if progress is not None:
             progress.update(stats["n"])
@@ -1426,6 +1537,8 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
         chunks_iter, _on_device(submit, engine.device),
         _on_device(emit, engine.device),
     )
+    if reducer is not None:
+        reducer.fold()  # one sum across shards, one copy per buffer
     infiles.close()
     if progress is not None:
         progress.close()
@@ -1766,7 +1879,8 @@ def _apply_match_windows(task, action, ws, we, hit, qs, qe):
     return as_front, removed, adj_rel
 
 
-def _pair_match(engines, chunks, windows, pair_stage, stats_pair=None):
+def _pair_match(engines, chunks, windows, pair_stage, stats_pair=None,
+                reducer=None):
     """--pair-adapters: adapter pair i matches iff it matches both
     reads; the pair with the highest total score wins (ties: fewer total
     errors, then the earlier pair), PairedAdapterCutter semantics
@@ -1862,12 +1976,12 @@ def _pair_match(engines, chunks, windows, pair_stage, stats_pair=None):
             e_hit = er[hit]
             if as_front.any():
                 _record_removals(
-                    astats.front, removed[as_front], e_hit[as_front]
+                    astats.front, removed[as_front], e_hit[as_front], reducer
                 )
             bk = ~as_front
             if bk.any():
-                _record_removals(astats.back, removed[bk], e_hit[bk])
-                _record_adjacent(astats.back, adjacent[bk])
+                _record_removals(astats.back, removed[bk], e_hit[bk], reducer)
+                _record_adjacent(astats.back, adjacent[bk], reducer)
     return matched
 
 
@@ -1984,7 +2098,8 @@ def _filter_events(events, mask):
     return out
 
 
-def _run_rc_pair(engines, rc_pair, chunks, windows, want_events=False):
+def _run_rc_pair(engines, rc_pair, chunks, windows, want_events=False,
+                 reducer=None):
     """--revcomp on paired data: match (R1 -> cutter1, R2 -> cutter2)
     and the swapped orientation (R2 -> cutter1, R1 -> cutter2), keep
     whichever scores strictly higher (PairedReverseComplementer,
@@ -2046,17 +2161,13 @@ def _run_rc_pair(engines, rc_pair, chunks, windows, want_events=False):
                 )
                 for s in np.unique(sub):
                     m = sub == s
-                    astats = cutter.adapter_statistics[task.adapters[int(s)]]
-                    astats.reverse_complemented += int(
+                    cutter.adapter_statistics[
+                        task.adapters[int(s)]
+                    ].reverse_complemented += int(
                         use_rc[reads[m if prim is None else (m & prim)]].sum()
                     )
-                    fm = m & asf
-                    bm = m & ~asf
-                    if fm.any():
-                        _record_removals(astats.front, rem[fm], err[fm])
-                    if bm.any():
-                        _record_removals(astats.back, rem[bm], err[bm])
-                        _record_adjacent(astats.back, adj[bm])
+                _record_adapter_events(cutter, task, sub, asf, rem, err, adj,
+                                       reducer)
 
     combined = np.concatenate([c1.buf, c2.buf])
     off2 = len(c1.buf)
@@ -2156,7 +2267,7 @@ def _make_side_render(stages_s, assemble_s, writes_fasta):
 
 
 def _paired_demux_router(demux, stages1, stages2, pair_stage=None,
-                         rc_pair=None):
+                         rc_pair=None, reducer=None):
     """The routing of paired and combinatorial demultiplexing (reference
     steps.py:422-580): R1's last match routes a PairedDemultiplexer
     (with --pair-adapters the winning pair's R1 adapter, under paired
@@ -2195,7 +2306,7 @@ def _paired_demux_router(demux, stages1, stages2, pair_stage=None,
             ws, we = windows[side]
             w._file.write(render_for(w, side)(cs[side], ws, we, mask,
                                               stats_pair[side]))
-            _record_written(demux._statistics, side + 1,
+            _record_written(demux._statistics, side + 1, reducer,
                             values=(we - ws)[mask])
 
     def route(cs, windows, keep, stats_pair):
@@ -2228,7 +2339,7 @@ def _paired_demux_router(demux, stages1, stages2, pair_stage=None,
                 write_pair(demux._untrimmed_writer, cs, windows, untrimmed,
                            stats_pair)
         else:
-            _record_filtered(demux, untrimmed)
+            _record_filtered(demux, untrimmed, reducer)
 
     return route
 
@@ -2360,6 +2471,7 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
             want_ref_coords=side_files["wildcard"] is not None)),
         (stages2, ()), extra_tasks=extra_tasks,
     )
+    reducer = _make_stats_reducer(engine1.device)
     RUN_TIMES["device_ready"] = time.perf_counter()
 
     from types import SimpleNamespace
@@ -2422,7 +2534,7 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
     inter_fasta = False
     if demux is not None:
         router = _paired_demux_router(demux, stages1, stages2, pair_stage,
-                                      rc_pair)
+                                      rc_pair, reducer)
     elif isinstance(sink.writer, InterleavedSequenceWriter):
         inter_out = sink.writer._writer._file
         inter_fasta = isinstance(sink.writer._writer, FastaWriter)
@@ -2531,7 +2643,7 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
         if pair_stage is not None:
             m1 = m2 = _pair_match(
                 (engine1, engine2), (c1, c2), ((ws1, we1), (ws2, we2)),
-                pair_stage, stats_pair=(stats1, stats2),
+                pair_stage, stats_pair=(stats1, stats2), reducer=reducer,
             )
         elif rc_pair is not None:
             (c1, c2, ws1, we1, ws2, we2, m1, m2, (gid1, geom1),
@@ -2539,7 +2651,7 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
              rc_events) = _run_rc_pair(
                 (engine1, engine2), rc_pair, (c1, c2),
                 ((ws1, we1), (ws2, we2)),
-                want_events=any(side_files.values()),
+                want_events=any(side_files.values()), reducer=reducer,
             )
             if rc_events is not None:
                 # side-file rows come from the chosen orientation's
@@ -2644,7 +2756,7 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
                     d2 = _pair_condition(t2, c2, ws2, we2, len2, m2, stats2)
                     drop = d1 | d2 if mode == "any" else d1 & d2
             newly = drop & keep
-            _record_filtered(step, newly)
+            _record_filtered(step, newly, reducer)
             if step.writer is not None and newly.any():
                 if renders is None:
                     interleave_write(
@@ -2668,10 +2780,10 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
             else:
                 out1.write(render1(c1, ws1, we1, keep, stats1))
                 out2.write(render2(c2, ws2, we2, keep, stats2))
-            _record_written(wl, 1, values=len1[keep])
-            _record_written(wl, 2, values=len2[keep])
-        bp1 += _apply_side_stats(stats1, stages1, cutters[0], None)
-        bp2 += _apply_side_stats(stats2, stages2, cutters[1], None)
+            _record_written(wl, 1, reducer, values=len1[keep])
+            _record_written(wl, 2, reducer, values=len2[keep])
+        bp1 += _apply_side_stats(stats1, stages1, cutters[0], None, reducer)
+        bp2 += _apply_side_stats(stats2, stages2, cutters[1], None, reducer)
         n += stats1["n"]
         if progress is not None:
             progress.update(stats1["n"])
@@ -2709,6 +2821,8 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
         chunk_pairs(), _on_device(submit_pair, engine1.device),
         _on_device(emit, engine1.device),
     )
+    if reducer is not None:
+        reducer.fold()  # one sum across shards, one copy per buffer
     infiles.close()
     if progress is not None:
         progress.close()

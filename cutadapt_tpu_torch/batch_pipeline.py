@@ -42,10 +42,13 @@ engine's wide format, int32 lengths on the wire. Quality capping
 (``qual_cap_base``) and a header-edit hook (``pre_filter_edit``) run
 before the filters, in the host's step order.
 
-Not ported yet, and refused with NotImplementedError: the device mesh
-(:func:`set_shard_mesh`). Several tasks of one stage dispatch one by
-one (the reference's shared upload is not ported; the results are the
-same).
+With a device mesh (:func:`set_shard_mesh`), every DP dispatch is cut
+into the mesh's equal row slices, slice i uploaded to and launched on
+``devices[i]``, and its results joined in shard order
+(:class:`ShardedResult`); the dispatch sizes are padded to the mesh
+(:func:`mesh_padded`), so every batch divides. Several tasks of one
+stage dispatch one by one (the reference's shared upload is not ported;
+the results are the same).
 
 Reference semantics: modifiers at cutadapt:src/cutadapt/modifiers.py,
 selection order of MultipleAdapters.match_to at adapters.py:1265-1286.
@@ -65,6 +68,7 @@ from .ops.align_batch import AlignerSpec, query_class_info, query_lut
 from .ops.align_cuda import (
     locate_packed, make_tables, resolve_device, unpack_result, unpack_wide,
 )
+from .parallel.mesh import on_device
 
 # query coordinates in the packed result are 14-bit: longer windows take
 # the wide result
@@ -77,13 +81,73 @@ XFER = {"h2d_bytes": 0, "d2h_bytes": 0, "candidates": 0, "dp_rows": 0}
 _XFER_LOCK = threading.Lock()
 
 
+# the device mesh the DP dispatches shard over (None: one device)
+_ACTIVE_MESH = None
+# launches per shard of a sharded dispatch, keyed by shard index
+SHARD_LAUNCHES = {}
+# dispatches active_mesh_for found indivisible (run on one device); the
+# engine pads every dispatch to the mesh, so its path leaves this at 0
+UNSHARDED_DISPATCHES = 0
+_WARNED_UNSHARDED = False
+_MESH_LOCK = threading.Lock()
+
+
 def set_shard_mesh(mesh) -> None:
-    """Sharding the DP dispatches over several devices is not ported
-    yet: ``None`` (one device) is accepted, a mesh is refused."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding over a device mesh is not ported yet"
-        )
+    """Shard subsequent DP dispatches over ``mesh`` (a 1-D
+    ``parallel.mesh.Mesh``: the batch axis is cut into one equal row
+    slice per shard). Pass None to return to one device."""
+    global _ACTIVE_MESH
+    if mesh is not None and len(getattr(mesh, "axis_names", ())) != 1:
+        raise ValueError("expected a 1-D mesh")
+    _ACTIVE_MESH = mesh
+
+
+def get_shard_mesh():
+    """The active shard mesh, or None (one device)."""
+    return _ACTIVE_MESH
+
+
+def active_mesh_for(batch: int):
+    """The active mesh if ``batch`` divides evenly over it. The engine's
+    dispatch sizes are padded to the mesh (see ``_dp_sizes``), so an
+    indivisible batch means a caller outside the engine: it is counted
+    (UNSHARDED_DISPATCHES), warned of once, and runs on one device."""
+    global _WARNED_UNSHARDED, UNSHARDED_DISPATCHES
+    mesh = _ACTIVE_MESH
+    if mesh is None or mesh.size <= 1:
+        return None
+    if batch % mesh.size != 0:
+        with _MESH_LOCK:
+            UNSHARDED_DISPATCHES += 1
+            warn = not _WARNED_UNSHARDED
+            _WARNED_UNSHARDED = True
+        if warn:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "DP batch of %d does not divide over the %d-device "
+                "mesh; running this dispatch on one device",
+                batch, mesh.size,
+            )
+        return None
+    return mesh
+
+
+def mesh_padded(size: int) -> int:
+    """``size`` rounded up to a multiple of the active mesh's size, so
+    every dispatch batch shards evenly over the mesh."""
+    mesh = _ACTIVE_MESH
+    if mesh is None or mesh.size <= 1:
+        return size
+    m = mesh.size
+    return (size + m - 1) // m * m
+
+
+def reset_shard_counters() -> None:
+    global UNSHARDED_DISPATCHES
+    with _MESH_LOCK:
+        SHARD_LAUNCHES.clear()
+        UNSHARDED_DISPATCHES = 0
 
 
 def _xfer_add(h2d=0, d2h=0, candidates=0, dp_rows=0) -> None:
@@ -224,6 +288,30 @@ class DeviceResult:
             self._event.synchronize()
         self._dev = None
         return self._host.numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.numpy()
+        return arr if dtype is None else arr.astype(dtype)
+
+
+class ShardedResult:
+    """The results of one dispatch sharded over a mesh: one
+    :class:`DeviceResult` per shard, each with its own pinned host buffer
+    and event (column slices of one pinned buffer would not be
+    contiguous). Reading it waits on each shard's event and joins the
+    shards along the batch axis, in shard order."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def copy_to_host_async(self) -> None:
+        for part in self.parts:
+            part.copy_to_host_async()
+
+    def numpy(self) -> np.ndarray:
+        return np.concatenate([part.numpy() for part in self.parts], axis=1)
 
     def __array__(self, dtype=None, copy=None):
         arr = self.numpy()
@@ -487,11 +575,32 @@ class AdapterTask:
 
     def step(self, enc: torch.Tensor, lengths: torch.Tensor,
              device: torch.device, pack2: Optional[bool],
-             wide: bool = False) -> DeviceResult:
+             wide: bool = False):
         """Upload one encoded batch (host tensors, pinned when the
         device is CUDA), launch the aligner in its lane (``pack2``: 2-bit,
         4-bit, or None the byte lane; ``wide``: the (7, B) result), and
-        queue the result's copy back."""
+        queue the result's copy back. With an active mesh that the batch
+        divides over, row slice i of the batch is uploaded to and
+        launched on ``mesh.devices[i]`` (a :class:`ShardedResult`);
+        otherwise the batch runs on ``device`` (a :class:`DeviceResult`)."""
+        mesh = active_mesh_for(len(lengths))
+        if mesh is None:
+            return self._launch(enc, lengths, device, pack2, wide)
+        per = len(lengths) // mesh.size
+        parts = []
+        for i, dev in enumerate(mesh.devices):
+            rows = slice(i * per, (i + 1) * per)
+            with on_device(dev):
+                part = self._launch(enc[rows], lengths[rows], dev, pack2,
+                                    wide)
+                # the copy back and its event on the shard's device
+                part.copy_to_host_async()
+            parts.append(part)
+            with _MESH_LOCK:
+                SHARD_LAUNCHES[i] = SHARD_LAUNCHES.get(i, 0) + 1
+        return ShardedResult(parts)
+
+    def _launch(self, enc, lengths, device, pack2, wide) -> DeviceResult:
         if device.type == "cuda":
             enc = enc.to(device, non_blocking=True)
             lengths = lengths.to(device, non_blocking=True)
@@ -856,16 +965,20 @@ class BatchPipelineEngine:
     def _dp_sizes(self, n: int) -> List[int]:
         """Dispatch batch sizes covering n reads: the binary
         decomposition of n over power-of-two buckets, floored at
-        min_dp_batch, so padding is bounded by min_dp_batch per chunk."""
+        min_dp_batch, so padding is bounded by min_dp_batch per chunk;
+        each size padded to the active mesh (mesh_padded), so every
+        dispatch shards evenly over its devices."""
         sizes = []
-        while n > self.max_dp_batch:
-            sizes.append(self.max_dp_batch)
-            n -= self.max_dp_batch
+        big = mesh_padded(self.max_dp_batch)
+        while n > big:
+            sizes.append(big)
+            n -= big
         s = self.max_dp_batch
         while n > 0:
-            if n >= s or s <= self.min_dp_batch:
-                sizes.append(s)
-                n -= s
+            cap = mesh_padded(s)
+            if n >= cap or s <= self.min_dp_batch:
+                sizes.append(cap)
+                n -= cap
             else:
                 s //= 2
         return sizes
@@ -878,28 +991,28 @@ class BatchPipelineEngine:
 
     def warmup(self, max_len: int, tasks=None) -> None:
         """Build the kernel library and launch every lane each kernel
-        task can use once, at the smallest dispatch size (both phases of
-        a linked task; comparers and indexed tasks launch nothing; a
-        byte-lane task only its lane), in the wide result where reads of
-        ``max_len`` or ``want_ref_coords`` need it. ``tasks`` defaults to
-        those of the engine's adapter stage."""
+        task can use once, at the smallest dispatch size padded to the
+        mesh (both phases of a linked task; comparers and indexed tasks
+        launch nothing; a byte-lane task only its lane), in the wide
+        result where reads of ``max_len`` or ``want_ref_coords`` need it.
+        With a mesh each launch is sharded, so every device of the mesh
+        is warmed. ``tasks`` defaults to those of the engine's adapter
+        stage."""
         width = self._bucket_length(max_len)
         wide = self.want_ref_coords or width >= (1 << _QS_BITS)
         packed = (True, False) if native.AVAILABLE and _pack2_on() else (False,)
         if tasks is None:
             tasks = [t for stage in self.stages
                      if isinstance(stage, AdapterStage) for t in stage.tasks]
+        rows = mesh_padded(self.min_dp_batch)
         for task in tasks:
             for t in task.kernel_tasks():
                 for p2 in (None,) if t.byte else packed:
                     w_in = width if p2 is None else (
                         width // 4 if p2 else width // 2)
-                    enc = self._host_tensor(
-                        np.zeros((self.min_dp_batch, w_in), np.uint8)
-                    )
+                    enc = self._host_tensor(np.zeros((rows, w_in), np.uint8))
                     lens = self._host_tensor(
-                        np.zeros(self.min_dp_batch,
-                                 np.int32 if wide else np.int16)
+                        np.zeros(rows, np.int32 if wide else np.int16)
                     )
                     t.step(enc, lens, self.device, pack2=p2,
                            wide=wide).numpy()

@@ -300,16 +300,18 @@ def _nvcc() -> str:
     return path
 
 
-def build_library() -> str:
-    """Compile the kernel library (once per source and flag hash) and
+def build_shared_library(src: str, info: dict) -> str:
+    """Compile the CUDA source ``src`` with NVCC_FLAGS into a shared
+    library under ``csrc/build/`` (once per source and flag hash) and
     return its path. Records the build time and the compiler's log
-    (register and shared-memory use per kernel) in BUILD_INFO."""
-    with open(_SRC, "rb") as f:
+    (register and shared-memory use per kernel) in ``info``."""
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    so = os.path.join(_BUILD_DIR, f"align_locate-{digest.hexdigest()[:12]}.so")
+    stem = os.path.splitext(os.path.basename(src))[0]
+    so = os.path.join(_BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
     if os.path.exists(so):
-        BUILD_INFO.update(path=so, seconds=0.0, cached=True, log="")
+        info.update(path=so, seconds=0.0, cached=True, log="")
         return so
     os.makedirs(_BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
@@ -317,20 +319,27 @@ def build_library() -> str:
     t0 = time.perf_counter()
     try:
         r = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
             capture_output=True, text=True, timeout=900,
         )
         if r.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed with exit code {r.returncode}:\n{r.stderr}"
+                f"nvcc failed on {os.path.basename(src)} with exit code "
+                f"{r.returncode}:\n{r.stderr}"
             )
         os.replace(tmp, so)  # atomic under concurrent builders
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0,
-                      cached=False, log=r.stderr)
+    info.update(path=so, seconds=time.perf_counter() - t0, cached=False,
+                log=r.stderr)
     return so
+
+
+def build_library() -> str:
+    """Compile the aligner's kernel library (see build_shared_library);
+    its build is recorded in BUILD_INFO."""
+    return build_shared_library(_SRC, BUILD_INFO)
 
 
 def _library():

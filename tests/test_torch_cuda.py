@@ -623,3 +623,124 @@ def test_revcomp_dispatch_reaches_kernel_on_card(card, monkeypatch):
     assert not any(align_cuda.PLAIN_RUNS.values())
     assert 700 < int(stats["is_rc"].sum()) < 1300
     spy.held_to_plain()
+
+
+# --- the statistics reducer and the device mesh --------------------------------
+
+
+def _card_mesh(size=4):
+    """``size`` shards on the first min(size, cards) cards, repeated in
+    order: the sharded path on however many cards the machine has."""
+    from cutadapt_tpu_torch.parallel import make_mesh
+
+    n = min(size, torch.cuda.device_count())
+    return make_mesh([torch.device("cuda", i % n) for i in range(size)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 33_000, 131_072])
+@pytest.mark.parametrize("entry", ["hist2d", "hist1d", "count"])
+def test_scatter_kernel_matches_plain_on_card(card, entry, n):
+    """Each entry point of the scatter kernel against its plain version
+    on the same CUDA tensors (a launch per non-empty batch, none for an
+    empty one); tolerance: exact."""
+    from cutadapt_tpu_torch.ops import stats_cuda
+
+    rng = np.random.RandomState(n)
+    i32 = torch.int32
+    rows = torch.from_numpy(rng.randint(0, 128, n).astype(np.int32)).cuda()
+    cols = torch.from_numpy(rng.randint(0, 64, n).astype(np.int32)).cuda()
+    valid = torch.from_numpy((rng.rand(n) < 0.7).astype(np.int32)).cuda()
+    shape = {"hist2d": (128, 64), "hist1d": (128,), "count": ()}[entry]
+    buf = torch.from_numpy(rng.randint(0, 5, shape).astype(np.int32)).cuda()
+    want = buf.clone()
+    stats_cuda.reset_launch_counters()
+    if entry == "hist2d":
+        stats_cuda.scatter_add_2d(buf, rows, cols, valid)
+        stats_cuda.scatter_add_2d_reference(want, rows, cols, valid)
+    elif entry == "hist1d":
+        stats_cuda.scatter_add_1d(buf, rows, valid)
+        stats_cuda.scatter_add_1d_reference(want, rows, valid)
+    else:
+        stats_cuda.count_add(buf, valid)
+        stats_cuda.count_add_reference(want, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(buf, want)
+    assert stats_cuda.LAUNCHES[entry] == (1 if n else 0)
+    assert not any(stats_cuda.PLAIN_RUNS.values())
+
+
+@pytest.mark.cuda
+def test_reducer_on_4_card_shards_matches_one_device(card):
+    from cutadapt_tpu_torch.ops import stats_cuda
+    from cutadapt_tpu_torch.parallel import DeviceStatsReducer
+
+    rng = np.random.RandomState(3)
+    events = [
+        ("h2", rng.randint(0, 200, 5000), rng.randint(0, 90, 5000)),
+        ("h1", rng.randint(0, 300, 7000)),
+        ("c", rng.rand(9000) < 0.3),
+        ("z", np.array([], np.int32)),
+    ]
+    got = {}
+    for tag, mesh in (("one", None), ("mesh", _card_mesh())):
+        red = DeviceStatsReducer(mesh, device="cuda")
+        out = got[tag] = {}
+        stats_cuda.reset_launch_counters()
+        for key, *ev in events:
+            fold = (lambda k: lambda v: out.__setitem__(k, v))(key)
+            if key == "h2":
+                red.add_hist2d(key, *ev, fold)
+            elif key == "c":
+                red.add_count(key, ev[0], fold)
+            else:
+                red.add_hist1d(key, ev[0], fold)
+        red.fold()
+        shards = 1 if mesh is None else 4
+        assert stats_cuda.LAUNCHES == {"hist2d": shards, "hist1d": shards,
+                                       "count": shards}
+        assert not any(stats_cuda.PLAIN_RUNS.values())
+    assert sorted(got["one"]) == sorted(got["mesh"])
+    for key, want in got["one"].items():
+        np.testing.assert_array_equal(got["mesh"][key], want, err_msg=key)
+    assert got["one"]["c"] == int(events[2][1].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["packed", "wide"])
+@pytest.mark.parametrize("pack2", [True, False, None],
+                         ids=["2bit", "4bit", "byte"])
+def test_sharded_step_matches_unsharded_on_card(card, pack2, wide):
+    """AdapterTask.step with a mesh of 4 shards of the card(s): one
+    launch per shard, each on its own device, and the joined result
+    equal to the unsharded launch's, in every lane and both stores."""
+    from cutadapt_tpu_torch.adapters import BackAdapter
+
+    # -N: the byte lane's adapter compares as ASCII (17 query classes)
+    adapter = fx.BYTE_LANE_ADAPTER if pack2 is None else fx.ADAPTER
+    task = tbp.AdapterTask(BackAdapter(adapter, max_errors=0.1, min_overlap=3,
+                                       adapter_wildcards=False), "back", 0)
+    assert task.byte == (pack2 is None)
+    _, enc, lens = fx.random_batch(task.spec, np.random.RandomState(8),
+                                   4096, 128, pack2)
+    enc_h = torch.from_numpy(enc).pin_memory()
+    len_h = torch.from_numpy(lens).pin_memory()
+    dev = torch.device("cuda", 0)
+    want = task.step(enc_h, len_h, dev, pack2, wide=wide).numpy()
+    tbp.set_shard_mesh(_card_mesh())
+    try:
+        tbp.reset_shard_counters()
+        align_cuda.reset_launch_counters()
+        res = task.step(enc_h, len_h, dev, pack2, wide=wide)
+        assert isinstance(res, tbp.ShardedResult)
+        assert [p._dev.device for p in res.parts] == list(
+            tbp.get_shard_mesh().devices)
+        got = res.numpy()
+    finally:
+        tbp.set_shard_mesh(None)
+    np.testing.assert_array_equal(got, want)
+    assert tbp.SHARD_LAUNCHES == {0: 1, 1: 1, 2: 1, 3: 1}
+    lane = align_cuda.LANE_NAMES[pack2]
+    assert align_cuda.LAUNCHES[lane] == 4
+    assert align_cuda.WIDE_LAUNCHES[lane] == (4 if wide else 0)
+    assert tbp.UNSHARDED_DISPATCHES == 0

@@ -138,10 +138,11 @@ def test_engine_without_device_needs_cuda(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """What the engine still refuses: stages it has no form for, the
-    device mesh and unknown task kinds. Adapter-side coordinates,
-    quality capping and windows of 2**14 bp or more run
-    (tests/test_torch_wide.py holds them to the JAX engine)."""
+    """What the engine still refuses: stages it has no form for, a shard
+    mesh that is not 1-D and unknown task kinds. Adapter-side
+    coordinates, quality capping, windows of 2**14 bp or more
+    (tests/test_torch_wide.py holds them to the JAX engine) and a 1-D
+    device mesh (tests/test_torch_mesh.py) run."""
     adapter = fx.make_adapter()
     task = tbp.AdapterTask(adapter, "back", 0)
     with pytest.raises(NotImplementedError, match="host stages"):
@@ -151,7 +152,12 @@ def test_unported_paths_raise():
                                      device="cpu")
     assert engine.want_ref_coords and engine.qual_cap_base == 33
     tbp.set_shard_mesh(None)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         tbp.set_shard_mesh(object())
+    from cutadapt_tpu_torch.parallel import make_mesh
+
+    tbp.set_shard_mesh(make_mesh(["cpu"] * 2))
+    assert tbp.get_shard_mesh().size == 2
+    tbp.set_shard_mesh(None)
     with pytest.raises(NotImplementedError, match="not ported"):
         tbp.AdapterTask(adapter, "unknown", 0)

@@ -61,7 +61,11 @@ PORT_MODULES = [
     "cutadapt_tpu_torch.ops",
     "cutadapt_tpu_torch.ops.align_batch",
     "cutadapt_tpu_torch.ops.align_cuda",
+    "cutadapt_tpu_torch.ops.stats_cuda",
     "cutadapt_tpu_torch.ops.tables",
+    "cutadapt_tpu_torch.parallel",
+    "cutadapt_tpu_torch.parallel.mesh",
+    "cutadapt_tpu_torch.parallel.stats",
     "cutadapt_tpu_torch.parser",
     "cutadapt_tpu_torch.pipeline",
     "cutadapt_tpu_torch.predicates",

@@ -9,7 +9,9 @@ carried it: no fallback to the host path was counted
 (``accel.FALLBACK_COUNT`` is 0) and the aligner ran (kernel launches
 plus plain-version runs above 0), so that a broken alias cannot pass on
 the host path alone. It prints one line, ``torch_as_jax {...}``, with
-those counts.
+those counts and, for runs on a shard mesh (``CUTADAPT_TPU_TORCH_DEVICES``),
+the launches per shard, the statistics reducer's folds and the scatter
+kernel's launches and plain runs.
 
 Load it before the suites' conftest, with ``tests/`` and the repository
 on ``PYTHONPATH``::
@@ -66,9 +68,12 @@ sys.meta_path.insert(0, _AliasFinder())
 
 
 def counts() -> dict:
-    """The port's fallback, launch and plain-run counters."""
-    from cutadapt_tpu_torch import accel
-    from cutadapt_tpu_torch.ops import align_cuda
+    """The port's fallback, launch and plain-run counters, the aligner's
+    launches per shard of a mesh, the statistics reducer's folds and the
+    scatter kernel's launches and plain runs."""
+    from cutadapt_tpu_torch import accel, batch_pipeline
+    from cutadapt_tpu_torch.ops import align_cuda, stats_cuda
+    from cutadapt_tpu_torch.parallel import stats
 
     return dict(
         fallbacks=accel.FALLBACK_COUNT,
@@ -76,6 +81,12 @@ def counts() -> dict:
         launches=dict(align_cuda.LAUNCHES),
         wide_launches=dict(align_cuda.WIDE_LAUNCHES),
         plain_runs=dict(align_cuda.PLAIN_RUNS),
+        shard_launches={str(k): v for k, v in
+                        sorted(batch_pipeline.SHARD_LAUNCHES.items())},
+        unsharded_dispatches=batch_pipeline.UNSHARDED_DISPATCHES,
+        reducer_folds=stats.FOLDS,
+        scatter_launches=dict(stats_cuda.LAUNCHES),
+        scatter_plain_runs=dict(stats_cuda.PLAIN_RUNS),
     )
 
 

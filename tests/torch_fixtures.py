@@ -28,7 +28,9 @@ its reads).
 
 Paired and revcomp workloads: :func:`make_pairs` makes Illumina TruSeq
 read pairs, :func:`make_amplicons` with ``rc_share`` amplicons of either
-orientation.
+orientation. The device mesh's check: :func:`write_mesh_pairs` and
+:func:`mesh_shape_args`, the four pipeline shapes of
+``__graft_entry__.py:_dryrun_real_pipeline``.
 
 The parity matrix holds the batched aligner to other forms of the same
 contract: 13 adapter specs spanning the adapter kinds and flag sets, and
@@ -970,3 +972,99 @@ def first_difference(got, want) -> Optional[str]:
         if not np.array_equal(g[f], w[f]):
             return f"{name} ({int((g[f] != w[f]).sum())} reads)"
     return None
+
+
+# --- the pipeline shapes of the mesh check -----------------------------------
+
+# the four shapes of __graft_entry__.py:_dryrun_real_pipeline: paired
+# -a/-A with -q, -m and --discard-untrimmed; paired demultiplexing by a
+# 5' barcode; a linked adapter beside an indexed anchored set; paired
+# --revcomp with --rename
+MESH_SHAPES = ("flagship", "demux", "linked_indexed", "revcomp_rename")
+MESH_BARCODES = ("AACCGGTT", "CGTATGCA", "TTGACCAA")
+
+
+def write_mesh_pairs(directory: str, n_pairs: int = 700,
+                     seed: int = 11) -> dict:
+    """The read pairs of the four mesh shapes, as _dryrun_real_pipeline
+    makes them (random ACGT of 20-90 bp, half with the side's adapter
+    inside, a barcode before three quarters of the barcoded R1 reads;
+    the revcomp pairs carry the R1 adapter on either read), written to
+    ``directory``. Returns {"plain" | "barcoded" | "rc": [R1, R2] paths}."""
+    import random
+
+    rng = random.Random(seed)
+    a1, a2 = ADAPTER, NEXTERA
+
+    def rand(n):
+        return "".join(rng.choice("ACGT") for _ in range(n))
+
+    def quals(s):
+        return "".join(chr(rng.randint(35, 72)) for _ in s)
+
+    def side(adapter, barcoded=False):
+        recs = []
+        for i in range(n_pairs):
+            L = rng.randint(20, 90)
+            s = rand(L)
+            if rng.random() < 0.5 and L > 25:
+                p = rng.randint(10, L - 10)
+                s = (s[:p] + adapter + s[p:])[:L]
+            if barcoded and rng.random() < 0.75:
+                s = rng.choice(MESH_BARCODES) + s
+            recs.append(f"@p{i}/x\n{s}\n+\n{quals(s)}\n")
+        return "".join(recs)
+
+    def rc_sides():
+        r1, r2 = [], []
+        for i in range(n_pairs):
+            L = rng.randint(25, 90)
+            s1, s2 = rand(L), rand(L)
+            p = rng.randint(10, max(11, L - 10))
+            if rng.random() < 0.5:
+                s1 = (s1[:p] + a1 + s1[p:])[:L]
+            else:
+                s2 = (s2[:p] + a1 + s2[p:])[:L]
+            r1.append(f"@rc{i}/x\n{s1}\n+\n{quals(s1)}\n")
+            r2.append(f"@rc{i}/x\n{s2}\n+\n{quals(s2)}\n")
+        return "".join(r1), "".join(r2)
+
+    files = {}
+    for stem, sides in (("plain", (side(a1), side(a2))),
+                        ("barcoded", (side(a1, barcoded=True), side(a2))),
+                        ("rc", rc_sides())):
+        files[stem] = []
+        for k, text in enumerate(sides):
+            files[stem].append(os.path.join(directory, f"{stem}.{k + 1}.fastq"))
+            with open(files[stem][-1], "w") as f:
+                f.write(text)
+    return files
+
+
+def mesh_shape_args(shape: str, files: dict, out: str) -> List[str]:
+    """The CLI arguments of one mesh shape, outputs under ``out``. Every
+    adapter is named: unnamed ones are numbered per process."""
+    a1, a2 = ADAPTER, NEXTERA
+    o = ["-o", os.path.join(out, "o.1.fastq"),
+         "-p", os.path.join(out, "o.2.fastq")]
+    if shape == "flagship":
+        return ["--quiet", "-a", f"ad1={a1}", "-A", f"ad2={a2}", "-q", "15",
+                "-m", "25", "--discard-untrimmed"] + o + files["plain"]
+    if shape == "demux":
+        gs = [x for i, b in enumerate(MESH_BARCODES)
+              for x in ("-g", f"bc{i}=^{b}")]
+        return gs + ["--quiet", "--no-indels", "-e", "0",
+                     "-o", os.path.join(out, "dm-{name}.1.fastq"),
+                     "-p", os.path.join(out, "dm-{name}.2.fastq")] \
+            + files["barcoded"]
+    if shape == "linked_indexed":
+        gs = [x for i, b in enumerate(
+            MESH_BARCODES + ("GGTTAACC", "ACACGTGT", "GTCAGTCA"))
+            for x in ("-g", f"ix{i}=^{b}")]
+        return gs + ["--quiet", "-a", f"lnk={a2}...{a1}", "-m", "20"] + o \
+            + files["barcoded"]
+    if shape == "revcomp_rename":
+        return ["--quiet", "--revcomp", "-a", f"ad1={a1}", "-A", f"ad2={a2}",
+                "--rename", "{id} a={adapter_name}", "-m", "20"] + o \
+            + files["rc"]
+    raise ValueError(f"unknown mesh shape {shape!r}")
