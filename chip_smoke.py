@@ -105,23 +105,29 @@ Phases, each of which must pass:
    CUTADAPT_TPU_TORCH_BATCH=require; pytest must exit 0 with no fallback
    and no plain run, and kernel launches counted (the subprocess's own
    counted window, read from the plugin's line);
-14. the statistics reducer and the device mesh: (a) the scatter kernel
-   (csrc/stats_scatter.cu) against its plain version, error 0, on 33,000
-   removal events into a 128 x 64 buffer, 131,072 written lengths, a
-   131,072-entry mask and an empty batch, with its time, bound and the
-   index_put_ call's time; (b) the flagship file and phase 8's paired
+14. the statistics reducer and the device mesh: (a) the scatter
+   kernel's batch entry point (csrc/stats_scatter.cu) against its plain
+   version, error 0: at 33,000 removal events into a 128 x 64 buffer,
+   131,072 written lengths and a 131,072-entry mask (one descriptor
+   each), at the flush of one flagship chunk (four buffers, one launch),
+   at a long-read removal histogram in direct mode, at more descriptors
+   than one launch takes and at an empty batch, with its time, bound and
+   the index_put_ calls' time; (b) the flagship file and phase 8's paired
    TruSeq files through main with CUTADAPT_TPU_TORCH_DEVICE_STATS=1,
    every file and the --json report equal to the run without it, one
-   fold, scatter launches counted; (c) a mesh of 4 shards on the first
-   min(4, cards) cards, repeated in order (set by replacing
-   accel._setup_mesh, as the CPU tests set 8 shards of the CPU), on the
-   flagship file and the four pipeline shapes of
+   fold, one scatter launch per flush with events (one per chunk); (c) a
+   mesh of 4 shards on the first min(4, cards) cards, repeated in order
+   (set by replacing accel._setup_mesh, as the CPU tests set 8 shards of
+   the CPU), on the flagship file and the four pipeline shapes of
    __graft_entry__.py:_dryrun_real_pipeline (torch_fixtures.
    write_mesh_pairs): files and report equal to the one-device run,
    each lane's launches 4 times the one-device run's (warm-ups apart),
-   every shard launched, no dispatch left unsharded, reads/s and the
-   flagship's idle share; (d) where the machine has 2 or more cards, (c)
-   again through CUTADAPT_TPU_TORCH_DEVICES=all.
+   every shard launched, no dispatch left unsharded, one scatter launch
+   per flush and shard on the flagship file, reads/s and the flagship's
+   idle share; (d) where the machine has 2 or more cards, (c) again
+   through CUTADAPT_TPU_TORCH_DEVICES=all; (e) make_sharded_trim_step on
+   4 shards of the card(s) equal to the same step on 4 shards of the
+   CPU, one scatter launch per shard.
 
 Launch counters are set to 0 just before each counted window (the main
 path's warm pass, the dirty lane, each counted CLI run, the golden
@@ -1045,20 +1051,38 @@ def golden_suites_phase() -> dict:
 SCATTER_HIST2D = (128, 64)
 N_SCATTER_REMOVALS = 33000
 N_SCATTER_EVENTS = 131072
+# a long-read removal histogram: past the cluster's shared memory, so the
+# kernel bins it in direct mode
+SCATTER_LONG_HIST2D = (32768, 64)
+N_SCATTER_LONG_REMOVALS = 8192
 MESH_SHARDS = 4
 MESH_PAIRS = 700
+# the sharded trim step's batch (4 shards of 1024 reads of 100 bp)
+STEP_READS = 4096
+STEP_READ_LEN = 100
+
+
+def scatter_bytes(descs) -> int:
+    """The bytes a batch must move: each event array read once, each
+    buffer read and written once."""
+    return sum(4 * sum(a.numel() for a in d[1:] if a is not None)
+               + 2 * 4 * d[0].numel() for d in descs)
 
 
 def scatter_phase():
-    """14 (a): each entry point of the scatter kernel at the shapes of the
-    reducer's path against its plain version on the same CUDA tensors
-    (tolerance: exact): removal events into a 128 x 64 buffer, written
-    lengths into a 1-D one, a mask's popcount, and an empty batch (no
-    launch). Times from CUDA events (the kernel in a CUDA graph, the
-    plain version and the library call, index_put_ with
-    accumulate=True, on the stream); the bound from the bytes the
-    function must move: each event read once, the buffer read and
-    written once, at the card's memory rate."""
+    """14 (a): the batch kernel against its plain version on the same
+    CUDA tensors (tolerance: exact), at three single-buffer shapes
+    through the one-descriptor names (removal events into a 128 x 64
+    buffer, written lengths into a 1-D one, a mask's popcount), at the
+    flush of one flagship chunk (removals, adjacent bases, the weighted
+    written-length bins and a mask in one launch), at a long-read removal
+    histogram in direct mode beside a cluster-mode one, at more
+    descriptors than one launch takes, and at an empty batch (no
+    launch). Times from CUDA events (the kernel in a CUDA graph and on
+    the stream; the plain version and the library call,
+    index_put_(accumulate=True) per buffer or a sum, on the stream); the
+    bound from the bytes the batch must move at the card's memory
+    rate."""
     import torch
 
     from cutadapt_tpu_torch.ops import stats_cuda as sc
@@ -1070,75 +1094,202 @@ def scatter_phase():
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
+    def buf(shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    def removals(n, rows):
+        return (t(np.minimum(rng.geometric(0.08, n), rows - 1)),
+                t(np.minimum(rng.geometric(0.6, n) - 1, 3)))
+
     n2, n1 = N_SCATTER_REMOVALS, N_SCATTER_EVENTS
-    removed = np.minimum(rng.geometric(0.08, n2), R - 1)
-    errors = np.minimum(rng.geometric(0.6, n2) - 1, 3)
     written = rng.randint(0, 101, n1)
-    mask = (rng.rand(n1) < 0.25).astype(np.int32)
+    hist = np.bincount(written)
+    nz = np.flatnonzero(hist)
+    mask = t(rng.rand(n1) < 0.25)
+    LR, LC = SCATTER_LONG_HIST2D
+    nl = N_SCATTER_LONG_REMOVALS
+    # a 1-D buffer one bin past the cluster's shared memory: direct mode
+    big = sc.CLUSTER * sc.MAX_BINS_PER_BLOCK + 1
+    many_bufs = [(5,), (128,), (R, C), (big,)] * 6
     cases = [
-        ("hist2d", (R, C), [t(removed), t(errors), t(np.ones(n2))],
-         sc.scatter_add_2d, sc.scatter_add_2d_reference),
-        ("hist1d", (R,), [t(written), t(np.ones(n1))],
-         sc.scatter_add_1d, sc.scatter_add_1d_reference),
-        ("count", (), [t(mask)], sc.count_add, sc.count_add_reference),
-        ("hist2d", (R, C), [t(np.zeros(0))] * 3,
-         sc.scatter_add_2d, sc.scatter_add_2d_reference),
+        # one descriptor each, with their 0/1 weights, as a one-buffer
+        # kernel would bin them
+        ("hist2d", [(buf((R, C)), *removals(n2, R), t(np.ones(n2)))]),
+        ("hist1d", [(buf((R,)), t(written), t(np.ones(n1)))]),
+        ("count", [(buf(()), mask)]),
+        # one flagship chunk's flush, as the reducer stages it
+        ("flush", [(buf((R, C)), *removals(n2, R), None),
+                   (buf((64,)), t(rng.randint(0, 5, n2)), None),
+                   (buf((R,)), t(nz), t(hist[nz])),
+                   (buf(()), mask)]),
+        ("direct", [(buf((LR, LC)), *removals(nl, LR), None),
+                    (buf((3 * 64, C)), *removals(n2, 3 * 64), None)]),
+        ("many", [(buf(shape), *(removals(500, shape[0])
+                                 if len(shape) == 2 else
+                                 (t(rng.randint(0, shape[0], 500)),)),
+                   t(rng.randint(0, 3, 500)))
+                  for shape in many_bufs] + [(buf((R,)), t([]), None)]),
+        ("hist2d", [(buf((R, C)), t([]), t([]), t([]))]),
     ]
     out = []
-    for name, shape, ev, kernel, plain in cases:
-        n = ev[0].shape[0]
-        got = torch.zeros(shape, dtype=torch.int32, device=dev)
-        want = torch.zeros(shape, dtype=torch.int32, device=dev)
-        before = sc.LAUNCHES[name]
-        kernel(got, *ev)
-        plain(want, *ev)
+    for name, descs in cases:
+        plan = sc.plan_batch([(d[0].numel(), (d[-1] if d[-1] is not None
+                                              else d[1]).numel())
+                              for d in descs])
+        want = [(d[0].clone(),) + tuple(d[1:]) for d in descs]
+        before = dict(sc.LAUNCHES)
+        modes_before = dict(sc.DESCRIPTORS)
+        sc.scatter_add_batch(descs)
+        sc.scatter_add_batch_reference(want)
         torch.cuda.synchronize()
-        if sc.LAUNCHES[name] != before + (1 if n else 0):
-            fail(f"scatter {name}: {sc.LAUNCHES[name] - before} launches "
-                 f"for a batch of {n} events")
-        err = int((got - want).abs().max()) if got.numel() else 0
-        if err or not torch.equal(got, want):
-            fail(f"scatter {name} at {n} events into {shape}: the kernel "
-                 f"differs from the plain version by up to {err}")
-        nums = dict(entry=name, events=n, buffer=list(shape),
-                    max_abs_err=err)
-        if n:
-            buf = torch.zeros(shape, dtype=torch.int32, device=dev)
-            idx = tuple(e.long() for e in ev[:-1])
-            if name == "count":
-                def library():
-                    buf.add_(ev[0].sum())
-            else:
-                def library():
-                    buf.index_put_(idx, ev[-1], accumulate=True)
-            nbytes = 4 * n * len(ev) + 2 * 4 * max(1, got.numel())
+        if sc.LAUNCHES["batch"] - before["batch"] != len(plan):
+            fail(f"scatter {name}: {sc.LAUNCHES['batch'] - before['batch']} "
+                 f"launches where the plan has {len(plan)}")
+        modes = {m: sc.DESCRIPTORS[m] - modes_before[m] for m in sc.MODES}
+        err = max((int((d[0].long() - w[0].long()).abs().max())
+                   for d, w in zip(descs, want)), default=0)
+        if err or not all(torch.equal(d[0], w[0])
+                          for d, w in zip(descs, want)):
+            fail(f"scatter {name}: the kernel differs from the plain "
+                 f"version by up to {err}")
+        events = sum((d[-1] if d[-1] is not None else d[1]).numel()
+                     for d in descs)
+        nums = dict(entry=name, events=events, descriptors=len(descs),
+                    buffers=[list(d[0].shape) for d in descs],
+                    launches=len(plan), modes=modes, max_abs_err=err)
+        if plan:
+            bufs = [d[0] for d in descs]
+            lib_args = [(d[0], tuple(a.long() for a in d[1:-1]),
+                         d[-1] if d[-1] is not None else
+                         torch.ones_like(d[1])) for d in descs]
+
+            def kernel():
+                sc.scatter_add_batch(descs)
+
+            def plain():
+                sc.scatter_add_batch_reference(descs)
+
+            def library():
+                # one PyTorch call per buffer, as a user would write it
+                for b, idx, w in lib_args:
+                    if idx:
+                        b.index_put_(idx, w, accumulate=True)
+                    else:
+                        b.add_(w.sum())
+
+            nbytes = scatter_bytes(descs)
             nums.update(
-                ms=cuda_ms(lambda: kernel(buf, *ev), 50, graph=True),
-                stream_ms=cuda_ms(lambda: kernel(buf, *ev), 50),
-                plain_ms=cuda_ms(lambda: plain(buf, *ev), 20),
+                ms=cuda_ms(kernel, 50, graph=True),
+                stream_ms=cuda_ms(kernel, 50),
+                plain_ms=cuda_ms(plain, 20),
                 library_ms=cuda_ms(library, 20),
+                bytes=nbytes,
                 bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
-                host_us_per_call=host_us(lambda: kernel(buf, *ev), 50),
+                host_us_per_call=host_us(kernel, 50),
             )
             nums["x_bound"] = nums["ms"] / nums["bound_ms"]
+            for b in bufs:
+                b.zero_()
+        if name == "flush":
+            nums["reducer_us_per_chunk"] = reducer_chunk_us(descs)
         out.append(nums)
-        log(f"scatter {name}: {n} events into {list(shape)} equal the plain "
-            f"version" + (
-                f"; {nums['ms'] * 1e3:.2f} us per launch (graph; "
+        log(f"scatter {name}: {len(descs)} descriptor(s), {events} events "
+            f"into {nums['buffers'][:4]}{' ...' if len(descs) > 4 else ''} "
+            f"equal the plain version; {len(plan)} launch(es), modes "
+            f"{modes}" + (
+                f"; {nums['ms'] * 1e3:.2f} us per call (graph; "
                 f"{nums['stream_ms'] * 1e3:.2f} us on the stream, "
                 f"{nums['host_us_per_call']:.1f} us of host time per call), "
-                f"bound {nums['bound_ms'] * 1e3:.3f} us (bytes), "
-                f"{nums['x_bound']:.1f}x; plain {nums['plain_ms'] * 1e3:.1f} "
-                f"us, index_put_ {nums['library_ms'] * 1e3:.1f} us"
-                if n else " (no launch)"))
+                f"bound {nums['bound_ms'] * 1e3:.3f} us ({nums['bytes']} "
+                f"bytes), {nums['x_bound']:.1f}x; plain "
+                f"{nums['plain_ms'] * 1e3:.1f} us, index_put_ per buffer "
+                f"{nums['library_ms'] * 1e3:.1f} us"
+                if plan else " (no launch)") + (
+                f"; the reducer's adds and flush of these events "
+                f"{nums['reducer_us_per_chunk']:.1f} us of host time per "
+                f"chunk" if name == "flush" else ""))
+    if not any(d["modes"]["direct"] for d in out):
+        fail("scatter: no descriptor ran in direct mode")
     return out
+
+
+def reducer_chunk_us(descs) -> float:
+    """Host microseconds per chunk of a DeviceStatsReducer on the card
+    that stages one chunk's events (the flush case's, from the host, as
+    the engine hands them over) and flushes them: the adds, the packing
+    into pinned memory, the upload and the launch."""
+    from cutadapt_tpu_torch.parallel import DeviceStatsReducer
+
+    hist2d, adj, written, count = (
+        [None if a is None else a.cpu().numpy() for a in d[1:]]
+        for d in descs)
+    red = DeviceStatsReducer(device="cuda")
+
+    def chunk():
+        red.add_hist2d("rm", hist2d[0], hist2d[1], lambda h: None)
+        red.add_hist1d("adj", adj[0], lambda h: None)
+        red.add_hist1d("wl", written[0], lambda h: None, weights=written[1])
+        red.add_count("flt", count[0], lambda n: None)
+        red.flush()
+
+    us = host_us(chunk, 50)
+    red.fold()
+    return us
+
+
+def sharded_step_phase() -> dict:
+    """14 (e): make_sharded_trim_step on MESH_SHARDS shards of the
+    card(s) against the same step on MESH_SHARDS shards of the CPU (the
+    plain versions): every field equal, and each shard's seven buffers
+    binned in one scatter launch."""
+    import torch
+
+    import torch_fixtures as fx
+    from cutadapt_tpu_torch.adapters import Where
+    from cutadapt_tpu_torch.ops import stats_cuda
+    from cutadapt_tpu_torch.ops.align_batch import AlignerSpec
+    from cutadapt_tpu_torch.parallel import make_mesh, make_sharded_trim_step
+
+    rng = np.random.RandomState(15)
+    reads = np.frombuffer(b"ACGT", np.uint8)[
+        rng.randint(0, 4, (STEP_READS, STEP_READ_LEN))].copy()
+    ad = np.frombuffer(fx.ADAPTER.encode(), np.uint8)
+    for i in range(0, STEP_READS, 4):
+        pos = rng.randint(0, STEP_READ_LEN - 4)
+        take = min(len(ad), STEP_READ_LEN - pos)
+        reads[i, pos:pos + take] = ad[:take]
+    lengths = rng.randint(30, STEP_READ_LEN + 1, STEP_READS).astype(np.int32)
+    spec = AlignerSpec(reference=fx.ADAPTER, max_error_rate=0.1,
+                       flags=Where.BACK.value, min_overlap=3)
+    cards = min(MESH_SHARDS, torch.cuda.device_count())
+    card_mesh = make_mesh([torch.device("cuda", i % cards)
+                           for i in range(MESH_SHARDS)])
+    want = make_sharded_trim_step(spec, make_mesh(["cpu"] * MESH_SHARDS),
+                                  STEP_READ_LEN, min_length=20)(reads, lengths)
+    stats_cuda.reset_launch_counters()
+    got = make_sharded_trim_step(spec, card_mesh, STEP_READ_LEN,
+                                 min_length=20)(reads, lengths)
+    launches = dict(stats_cuda.LAUNCHES)
+    if launches != {"batch": MESH_SHARDS}:
+        fail(f"sharded trim step: scatter launches {launches}, not one per "
+             f"shard")
+    same = (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and sorted(got[2]) == sorted(want[2])
+            and all(np.array_equal(got[2][k], w) for k, w in want[2].items()))
+    if not same:
+        fail("sharded trim step: the card's result differs from the CPU's")
+    log(f"sharded trim step on {MESH_SHARDS} shards of {cards} card(s): "
+        f"every field equal to the CPU shards'; scatter launches {launches} "
+        f"({stats_cuda.DESCRIPTORS['cluster']} cluster-mode descriptors)")
+    return dict(scatter_launches=launches["batch"], shards=MESH_SHARDS)
 
 
 class MainRuns:
     """Runs of cli.main for phase 14, each in a directory of its own with
     its own environment, counted: launch counters at 0 just before the
     call, the engine's warm-up launches (made inside _setup_device) kept
-    apart, shard and scatter counters read just after."""
+    apart, shard and scatter counters and the reducer's flushes (those
+    that had events staged) read just after."""
 
     def __init__(self, tmp):
         self.tmp = tmp
@@ -1171,10 +1322,19 @@ class MainRuns:
             warm.update(align_cuda.LAUNCHES)
             return engines
 
+        flushes = {"calls": 0, "with_events": 0}
+        flush = stats.DeviceStatsReducer.flush
+
+        def counted_flush(red):
+            flushes["calls"] += 1
+            flushes["with_events"] += bool(red._staged)
+            return flush(red)
+
         port_adapters._adapter_counter = [0]
         fallbacks = accel.FALLBACK_COUNT
         folds = stats.FOLDS
         accel._setup_device = counted_setup
+        stats.DeviceStatsReducer.flush = counted_flush
         if record is not None:
             bp.locate_packed = record
         align_cuda.reset_launch_counters()
@@ -1186,6 +1346,7 @@ class MainRuns:
             dt = time.perf_counter() - t0
         finally:
             accel._setup_device = setup
+            stats.DeviceStatsReducer.flush = flush
             if record is not None:
                 bp.locate_packed = record.fn
             for k, v in saved.items():
@@ -1210,8 +1371,10 @@ class MainRuns:
             shard_launches=dict(bp.SHARD_LAUNCHES),
             unsharded=bp.UNSHARDED_DISPATCHES,
             scatter_launches=dict(stats_cuda.LAUNCHES),
+            scatter_descriptors=dict(stats_cuda.DESCRIPTORS),
             scatter_plain_runs=sum(stats_cuda.PLAIN_RUNS.values()),
-            folds=stats.FOLDS - folds,
+            folds=stats.FOLDS - folds, flushes=flushes["with_events"],
+            flush_calls=flushes["calls"],
         )
 
 
@@ -1287,26 +1450,29 @@ def reducer_mesh_phase(data, pairs, clock_hz, sms) -> dict:
             if base["folds"] or sum(base["scatter_launches"].values()):
                 fail(f"reducer {label}: the reducer ran without a mesh or "
                      f"CUTADAPT_TPU_TORCH_DEVICE_STATS=1")
-            if red["folds"] != 1 or red["scatter_launches"]["hist2d"] <= 0:
+            # one launch per chunk: every emit flushes its chunk's events
+            if (red["folds"] != 1 or red["flushes"] <= 0
+                    or red["scatter_launches"]["batch"] != red["flushes"]):
                 fail(f"reducer {label}: folds {red['folds']}, scatter "
-                     f"launches {red['scatter_launches']}")
+                     f"launches {red['scatter_launches']}, flushes with "
+                     f"events {red['flushes']}")
             if red["launches"] != base["launches"]:
                 fail(f"reducer {label}: aligner launches {red['launches']} "
                      f"differ from {base['launches']}")
             forced[label] = dict(
                 scatter_launches=red["scatter_launches"],
+                scatter_descriptors=red["scatter_descriptors"],
+                flushes=red["flushes"], flush_calls=red["flush_calls"],
                 reads_per_sec=n / red["seconds"],
                 reads_per_sec_without=n / base["seconds"],
             )
             log(f"reducer forced on one card, {label}: files and report "
                 f"equal to the run without it; scatter launches "
-                f"{red['scatter_launches']}, one fold; "
+                f"{red['scatter_launches']} (descriptors "
+                f"{red['scatter_descriptors']}) for {red['flushes']} flushes "
+                f"with events of {red['flush_calls']}, one fold; "
                 f"{n / red['seconds']:.1f} reads/s against "
                 f"{n / base['seconds']:.1f} without")
-        unused = [e for e in forced["flagship"]["scatter_launches"]
-                  if not any(f["scatter_launches"][e] for f in forced.values())]
-        if unused:
-            fail(f"reducer: the scatter entry points {unused} never launched")
         result["forced"] = forced
 
         # (c) MESH_SHARDS shards on the first min(MESH_SHARDS, cards)
@@ -1352,6 +1518,14 @@ def reducer_mesh_phase(data, pairs, clock_hz, sms) -> dict:
                      f"divide over the mesh")
             if got["folds"] != 1:
                 fail(f"mesh {label}: the reducer folded {got['folds']} times")
+            # one launch per flush and shard that holds events: every
+            # shard on the flagship file's chunks
+            sl = got["scatter_launches"]["batch"]
+            if not (got["flushes"] <= sl <= MESH_SHARDS * got["flushes"]) or (
+                    label == "flagship file"
+                    and sl != MESH_SHARDS * got["flushes"]):
+                fail(f"mesh {label}: {sl} scatter launches for "
+                     f"{got['flushes']} flushes on {MESH_SHARDS} shards")
             for i, c in got["shard_launches"].items():
                 shard_totals[i] = shard_totals.get(i, 0) + c
             per_config[label] = dict(
@@ -1359,6 +1533,7 @@ def reducer_mesh_phase(data, pairs, clock_hz, sms) -> dict:
                 warmup_launches=got["warmup_launches"],
                 shard_launches=got["shard_launches"],
                 scatter_launches=got["scatter_launches"],
+                flushes=got["flushes"],
                 reads_per_sec=n / got["seconds"],
                 one_device_reads_per_sec=n / base["seconds"],
             )
@@ -1564,7 +1739,7 @@ def main() -> int:
               "missing)", file=sys.stderr)
         return 2
     sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
-    mark = time.perf_counter()
+    mark = started = time.perf_counter()
 
     def phase_done(name):
         nonlocal mark
@@ -1849,6 +2024,7 @@ def main() -> int:
     # 14. the statistics reducer and the device mesh
     scatter = scatter_phase()
     mesh14 = reducer_mesh_phase(data, pairs, clock_mhz * 1e6, sms)
+    step14 = sharded_step_phase()
     del pairs
     phase_done("14 reducer and mesh")
     busy = {}
@@ -1971,26 +2147,29 @@ def main() -> int:
     for kernel in kernels:
         kernel["shard_launches"] = mesh14["mesh"]["shard_launches"]
     # the scatter kernel: its path is phase 14's; the reported time, bound
-    # and library call are those of the removal histogram's shape
-    top = scatter[0]
-    forced_flag = mesh14["forced"]["flagship"]["scatter_launches"]
+    # and library call are those of one flagship chunk's flush
+    top = next(d for d in scatter if d["entry"] == "flush")
+    forced_flag = mesh14["forced"]["flagship"]
     kernels.append(dict(
         name="stats_scatter", route="cuda",
         source="cutadapt_tpu_torch/csrc/stats_scatter.cu",
         replaces="cutadapt_tpu/parallel/stats.py:54",
-        launches=sum(forced_flag.values()), parity="ok",
+        launches=forced_flag["scatter_launches"]["batch"], parity="ok",
         max_abs_err=max(d["max_abs_err"] for d in scatter),
         ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
         bound_by=top["bound_by"], library_ms=top["library_ms"],
-        launches_by_entry=forced_flag,
+        descriptors_by_mode=forced_flag["scatter_descriptors"],
         per_entry=scatter,
         reducer_forced=mesh14["forced"],
-        mesh={label: dict(scatter_launches=c["scatter_launches"])
+        mesh={label: dict(scatter_launches=c["scatter_launches"],
+                          flushes=c["flushes"])
               for label, c in mesh14["mesh"]["configs"].items()},
+        sharded_step=step14,
     ))
     log(f"reads_per_sec {rps}")
     log("seconds per phase " + json.dumps(
-        {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
+        {k: round(v, 1) for k, v in PHASE_SECONDS.items()})
+        + f"; {time.perf_counter() - started:.1f} s in all")
     # the card again, near the end of the output
     log(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -758,22 +758,20 @@ def _record_adjacent(end, adj_bytes, reducer=None):
 def _record_written(wl, side, reducer=None, values=None, hist=None):
     """Written-length histogram for one side: from the kept reads'
     lengths (``values``) or their bincount (``hist``); on the reducer,
-    a histogram rides as the values it counts."""
+    a histogram rides as its nonzero bins weighted by their counts."""
     if reducer is not None:
         def fold(h, wl=wl, side=side):
             wl.add_histogram(h, side=side)
 
+        weights = None
         if values is None:
-            values = _hist_to_values(hist)
-        reducer.add_hist1d(("wl", id(wl), side), values, fold)
+            values = np.flatnonzero(hist)
+            weights = np.asarray(hist)[values]
+        reducer.add_hist1d(("wl", id(wl), side), values, fold, weights)
         return
     if hist is None:
         hist = np.bincount(values)
     wl.add_histogram(hist, side=side)
-
-
-def _hist_to_values(hist):
-    return np.repeat(np.arange(len(hist)), hist)
 
 
 def _record_filtered(step, mask, reducer=None):
@@ -1500,6 +1498,8 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
                 _record_filtered(f.step, newly, reducer)
         total_bp += _apply_side_stats(stats, stages, cutter, written_lengths,
                                       reducer)
+        if reducer is not None:
+            reducer.flush()  # one upload and one launch per shard
         n += stats["n"]
         if progress is not None:
             progress.update(stats["n"])
@@ -2784,6 +2784,8 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
             _record_written(wl, 2, reducer, values=len2[keep])
         bp1 += _apply_side_stats(stats1, stages1, cutters[0], None, reducer)
         bp2 += _apply_side_stats(stats2, stages2, cutters[1], None, reducer)
+        if reducer is not None:
+            reducer.flush()  # one upload and one launch per shard
         n += stats1["n"]
         if progress is not None:
             progress.update(stats1["n"])

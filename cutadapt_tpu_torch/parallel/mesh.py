@@ -27,7 +27,7 @@ import torch
 
 from ..ops.align_batch import AlignerSpec, query_class_info, query_lut
 from ..ops.align_cuda import locate_packed, make_tables
-from ..ops.stats_cuda import count_add, scatter_add_1d, scatter_add_2d
+from ..ops.stats_cuda import scatter_add_batch
 
 AXIS = "reads"
 
@@ -136,8 +136,9 @@ def make_sharded_trim_step(
     B must be divisible by the mesh size. Each shard is encoded into the
     spec's own lane (2-bit where its class ids fit, else 4-bit; the byte
     lane for a spec of more than 16 query classes), located on its
-    device in the kernel's wide result, and binned there with the scatter
-    kernel; the partials are summed once. ``jit`` is accepted for the
+    device in the kernel's wide result, and its seven buffers binned
+    there with one launch of the scatter kernel; the partials are summed
+    once. ``jit`` is accepted for the
     JAX signature and changes nothing: PyTorch runs eagerly.
     """
     tables = make_tables(spec)
@@ -156,29 +157,29 @@ def make_sharded_trim_step(
         found = out[0] != 0
         stops = torch.where(found, out[1], n)
         removed = torch.where(found, n - stops, 0)
-        hist = torch.zeros((max_len + 1, n_err), dtype=i32, device=dev)
-        scatter_add_2d(hist, removed.clamp(0, max_len),
-                       out[3].clamp(0, n_err - 1), found.to(i32))
         prev = raw.gather(
             1, (stops - 1).clamp(0, queries.shape[1] - 1)[:, None].long()
         )[:, 0]
         adj_code = torch.from_numpy(_ADJ_CODE).to(dev)
         code = torch.where(stops > 0, adj_code[prev.long()], 4).to(i32)
-        adjacent = torch.zeros(5, dtype=i32, device=dev)
-        scatter_add_1d(adjacent, code, found.to(i32))
         too_short = stops < min_length
         kept = ~too_short
+        hist = torch.zeros((max_len + 1, n_err), dtype=i32, device=dev)
+        adjacent = torch.zeros(5, dtype=i32, device=dev)
         wl = torch.zeros(max_len + 1, dtype=i32, device=dev)
-        scatter_add_1d(wl, stops.clamp(0, max_len), kept.to(i32))
-        counts = {}
-        for key, valid in (
-            ("total_bp", n),
-            ("written_bp", torch.where(kept, stops, 0).to(i32)),
-            ("with_adapters", found.to(i32)),
-            ("filtered_too_short", too_short.to(i32)),
-        ):
-            counts[key] = torch.zeros(1, dtype=i32, device=dev)
-            count_add(counts[key], valid)
+        counts = {key: torch.zeros(1, dtype=i32, device=dev) for key in (
+            "total_bp", "written_bp", "with_adapters", "filtered_too_short")}
+        # the seven buffers of the shard in one launch
+        scatter_add_batch([
+            (hist, removed.clamp(0, max_len), out[3].clamp(0, n_err - 1),
+             found.to(i32)),
+            (adjacent, code, found.to(i32)),
+            (wl, stops.clamp(0, max_len), kept.to(i32)),
+            (counts["total_bp"], n),
+            (counts["written_bp"], torch.where(kept, stops, 0).to(i32)),
+            (counts["with_adapters"], found.to(i32)),
+            (counts["filtered_too_short"], too_short.to(i32)),
+        ])
         return stops, found, dict(
             length_error_histogram=hist, adjacent_bases=adjacent,
             written_lengths=wl, **counts,

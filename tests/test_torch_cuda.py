@@ -654,19 +654,17 @@ def test_scatter_kernel_matches_plain_on_card(card, entry, n):
     shape = {"hist2d": (128, 64), "hist1d": (128,), "count": ()}[entry]
     buf = torch.from_numpy(rng.randint(0, 5, shape).astype(np.int32)).cuda()
     want = buf.clone()
+    events = {"hist2d": (rows, cols, valid), "hist1d": (rows, valid),
+              "count": (valid,)}[entry]
     stats_cuda.reset_launch_counters()
-    if entry == "hist2d":
-        stats_cuda.scatter_add_2d(buf, rows, cols, valid)
-        stats_cuda.scatter_add_2d_reference(want, rows, cols, valid)
-    elif entry == "hist1d":
-        stats_cuda.scatter_add_1d(buf, rows, valid)
-        stats_cuda.scatter_add_1d_reference(want, rows, valid)
-    else:
-        stats_cuda.count_add(buf, valid)
-        stats_cuda.count_add_reference(want, valid)
+    {"hist2d": stats_cuda.scatter_add_2d, "hist1d": stats_cuda.scatter_add_1d,
+     "count": stats_cuda.count_add}[entry](buf, *events)
+    stats_cuda.scatter_add_batch_reference([(want, *events)])
     torch.cuda.synchronize()
     assert torch.equal(buf, want)
-    assert stats_cuda.LAUNCHES[entry] == (1 if n else 0)
+    # a one-descriptor batch: one launch where there are events
+    assert stats_cuda.LAUNCHES == {"batch": 1 if n else 0}
+    assert stats_cuda.DESCRIPTORS == {"cluster": 1 if n else 0, "direct": 0}
     assert not any(stats_cuda.PLAIN_RUNS.values())
 
 
@@ -696,14 +694,182 @@ def test_reducer_on_4_card_shards_matches_one_device(card):
             else:
                 red.add_hist1d(key, ev[0], fold)
         red.fold()
+        # the adds stage; fold's flush is one launch per shard
         shards = 1 if mesh is None else 4
-        assert stats_cuda.LAUNCHES == {"hist2d": shards, "hist1d": shards,
-                                       "count": shards}
+        assert stats_cuda.LAUNCHES == {"batch": shards}
         assert not any(stats_cuda.PLAIN_RUNS.values())
     assert sorted(got["one"]) == sorted(got["mesh"])
     for key, want in got["one"].items():
         np.testing.assert_array_equal(got["mesh"][key], want, err_msg=key)
     assert got["one"]["c"] == int(events[2][1].sum())
+
+
+def _scatter_case(case, dev):
+    """Descriptors of one batch-kernel case on ``dev``: the flush of a
+    flagship chunk (the reducer's shapes), a long-read removal histogram
+    past the cluster's shared memory beside a small one (direct and
+    cluster mode), more descriptors than one launch takes (buffers
+    repeated), and empty descriptors."""
+    from cutadapt_tpu_torch.ops import stats_cuda
+
+    rng = np.random.RandomState(len(case))
+    i32 = torch.int32
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def removals(n, rows):
+        return (t(np.minimum(rng.geometric(0.08, n), rows - 1)),
+                t(np.minimum(rng.geometric(0.6, n) - 1, 3)))
+
+    if case == "reducer":
+        hist = np.bincount(rng.randint(0, 101, 131072))
+        nz = np.flatnonzero(hist)
+        return [
+            (torch.zeros((128, 64), dtype=i32, device=dev),
+             *removals(33000, 128), None),
+            (torch.zeros(64, dtype=i32, device=dev),
+             t(rng.randint(0, 5, 33000)), None),
+            (torch.zeros(128, dtype=i32, device=dev), t(nz), t(hist[nz])),
+            (torch.zeros((), dtype=i32, device=dev),
+             t(rng.rand(131072) < 0.25)),
+        ]
+    if case == "direct":
+        rows = 32768
+        assert stats_cuda.bins_per_block(rows * 64) == 0
+        return [
+            (torch.zeros((rows, 64), dtype=i32, device=dev),
+             t(rng.randint(-5, rows + 5, 8192)), t(rng.randint(-1, 70, 8192)),
+             t(rng.randint(-2, 5, 8192))),
+            (torch.zeros((192, 64), dtype=i32, device=dev),
+             *removals(20000, 192), t(rng.randint(0, 3, 20000))),
+        ]
+    if case == "many":
+        bufs = [torch.zeros(rng.choice([5, 130, 12289 * 8]), dtype=i32,
+                            device=dev) for _ in range(20)]
+        descs = []
+        for k in range(2 * stats_cuda.MAX_DESCRIPTORS + 5):
+            b = bufs[k % len(bufs)]
+            n = int(rng.randint(1, 5000))
+            descs.append((b, t(rng.randint(0, b.numel() + 3, n)),
+                          t(rng.randint(0, 4, n))))
+        return descs
+    assert case == "empty"
+    return [
+        (torch.zeros((64, 64), dtype=i32, device=dev), t([]), t([]), t([])),
+        (torch.zeros(64, dtype=i32, device=dev), t([3, 3, 70]), None),
+        (torch.zeros(1, dtype=i32, device=dev), t([])),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["reducer", "direct", "many", "empty"])
+def test_scatter_batch_matches_plain_on_card(card, case):
+    """The batch kernel against its plain version on the same CUDA
+    tensors, every buffer; the launches and each descriptor's mode as the
+    plan says; tolerance: exact."""
+    from cutadapt_tpu_torch.ops import stats_cuda
+
+    dev = torch.device("cuda", 0)
+    descs = _scatter_case(case, dev)
+    # one copy per buffer: descriptors of one buffer add up in it
+    copies = {}
+    want = [(copies.setdefault(d[0].data_ptr(), d[0].clone()),)
+            + tuple(d[1:]) for d in descs]
+    plan = stats_cuda.plan_batch([(d[0].numel(), d[-1].shape[0]
+                                   if d[-1] is not None else d[1].shape[0])
+                                  for d in descs])
+    stats_cuda.reset_launch_counters()
+    stats_cuda.scatter_add_batch(descs)
+    stats_cuda.scatter_add_batch_reference(want)
+    torch.cuda.synchronize()
+    for d, w in zip(descs, want):
+        assert torch.equal(d[0], w[0])
+    modes = [per for launch in plan for per in launch.bins_per_block]
+    assert stats_cuda.LAUNCHES == {"batch": len(plan)}
+    assert stats_cuda.DESCRIPTORS == {
+        "cluster": sum(1 for p in modes if p), "direct": modes.count(0)}
+    assert not any(stats_cuda.PLAIN_RUNS.values())
+    assert len(plan) == {"reducer": 1, "direct": 1, "many": 3,
+                         "empty": 1}[case]
+    if case == "direct":
+        assert modes == [0, 192 * 64 // stats_cuda.CLUSTER]
+
+
+@pytest.mark.cuda
+def test_reducer_flushes_once_per_chunk_on_card(card):
+    """Chunks of events flushed one by one on one device and on 4 shards
+    of the card(s): one launch per chunk and shard, and the fold equal to
+    the plain version's on the CPU."""
+    from cutadapt_tpu_torch.ops import stats_cuda
+    from cutadapt_tpu_torch.parallel import DeviceStatsReducer, make_mesh
+
+    rng = np.random.RandomState(12)
+    chunks = []
+    for _ in range(3):
+        n = int(rng.randint(1000, 5000))
+        hist = np.bincount(rng.randint(0, 150, 20000))
+        chunks.append((rng.randint(0, 150, n), rng.randint(0, 4, n),
+                       rng.randint(0, 5, n), hist, rng.rand(20000) < 0.1))
+    got = {}
+    for tag, mesh, device in (
+            ("cpu", make_mesh(["cpu"] * 4), "cpu"), ("one", None, "cuda"),
+            ("mesh", _card_mesh(), "cuda")):
+        red = DeviceStatsReducer(mesh, device=device)
+        out = got[tag] = {}
+        stats_cuda.reset_launch_counters()
+        for rem, err, adj, hist, mask in chunks:
+            nz = np.flatnonzero(hist)
+            red.add_hist2d("rm", rem, err, lambda v: out.__setitem__("rm", v))
+            red.add_hist1d("adj", adj, lambda v: out.__setitem__("adj", v))
+            red.add_hist1d("wl", nz, lambda v: out.__setitem__("wl", v),
+                           weights=hist[nz])
+            red.add_count("flt", mask, lambda v: out.__setitem__("flt", v))
+            red.flush()
+        red.fold()
+        shards = 1 if mesh is None else 4
+        counter = stats_cuda.PLAIN_RUNS if tag == "cpu" else stats_cuda.LAUNCHES
+        assert counter == {"batch": 3 * shards}, tag
+    for tag in ("one", "mesh"):
+        assert sorted(got[tag]) == sorted(got["cpu"])
+        for key, want in got["cpu"].items():
+            np.testing.assert_array_equal(got[tag][key], want,
+                                          err_msg=(tag, key))
+
+
+@pytest.mark.cuda
+def test_sharded_trim_step_bins_in_one_launch_per_shard_on_card(card):
+    """make_sharded_trim_step on 4 shards of the card(s) against the same
+    step on 4 shards of the CPU: every field equal, and the seven buffers
+    of each shard binned in one scatter launch."""
+    from cutadapt_tpu_torch.adapters import Where
+    from cutadapt_tpu_torch.ops import stats_cuda
+    from cutadapt_tpu_torch.ops.align_batch import AlignerSpec
+    from cutadapt_tpu_torch.parallel import make_mesh, make_sharded_trim_step
+
+    rng = np.random.RandomState(21)
+    batch, length = 1024, 100
+    reads = np.frombuffer(b"ACGT", np.uint8)[rng.randint(0, 4, (batch, length))]
+    ad = np.frombuffer(fx.ADAPTER.encode(), np.uint8)
+    for i in range(0, batch, 3):
+        pos = rng.randint(0, length - 4)
+        take = min(len(ad), length - pos)
+        reads[i, pos:pos + take] = ad[:take]
+    lengths = rng.randint(20, length + 1, batch).astype(np.int32)
+    spec = AlignerSpec(reference=fx.ADAPTER, max_error_rate=0.1,
+                       flags=Where.BACK.value, min_overlap=3)
+    want = make_sharded_trim_step(spec, make_mesh(["cpu"] * 4), length,
+                                  min_length=30)(reads, lengths)
+    stats_cuda.reset_launch_counters()
+    got = make_sharded_trim_step(spec, _card_mesh(), length,
+                                 min_length=30)(reads, lengths)
+    assert stats_cuda.LAUNCHES == {"batch": 4}
+    assert stats_cuda.DESCRIPTORS == {"cluster": 28, "direct": 0}
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert sorted(got[2]) == sorted(want[2])
+    for key, w in want[2].items():
+        np.testing.assert_array_equal(got[2][key], w, err_msg=key)
 
 
 @pytest.mark.cuda
