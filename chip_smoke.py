@@ -128,11 +128,35 @@ Phases, each of which must pass:
    through CUTADAPT_TPU_TORCH_DEVICES=all; (e) make_sharded_trim_step on
    4 shards of the card(s) equal to the same step on 4 shards of the
    CPU, one scatter launch per shard.
+15. the input sharded over processes (parallel/multihost.py): (a)
+   --shard i/4 through main in this process on phase 5's flagship file,
+   one shard after another, each shard's launches counted (every shard
+   must launch the 2-bit lane), the outputs concatenated equal to phase
+   5's output byte for byte, merge_statistics of the four pickles (each
+   refused if it holds a torch object) equal to phase 5's --json report
+   on read counts, base pairs and adapter statistics, each launch shape
+   held to the plain version, and the plan pass timed alone; (b) the
+   flagship file written 4 times over, run unsharded through python -m
+   cutadapt_tpu_torch (output equal to phase 5's output 4 times) and
+   through tools/multihost_run_torch.py with 1, 2 and 4 processes at
+   once, each output byte-identical and each merged report equal to the
+   unsharded run's; reads/s of each, each shard process's seconds, one
+   process's start-up, the plan pass, os.cpu_count() and the card's idle
+   share estimated from (a)'s kernel time; (c) phase 8's paired files
+   through the coordinator on 2 processes with
+   CUTADAPT_TPU_TORCH_DEVICE_STATS=1, R1, R2 and the merged report equal
+   to phase 8's; (d) two --shard i/2 processes of the flagship file in
+   one gloo group (CUTADAPT_TPU_TORCH_DIST_COORDINATOR), both exiting 0
+   within 120 s, their outputs concatenated equal to phase 5's; (e)
+   tools/kernel_bench_torch.py 32768 20 3, tools/profile_xfer_torch.py,
+   tools/profile_batch_torch.py (its submit split on a line of its own)
+   and tools/fuzz_parity_torch.py 20 15000 on the card (0 mismatches).
+   Every process the phase starts must exit 0 within its time limit.
 
 Launch counters are set to 0 just before each counted window (the main
 path's warm pass, the dirty lane, each counted CLI run, the golden
 cases, the counted runs of phases 6 to 12, the golden suites' process,
-each run of phase 14)
+each run of phase 14, each shard run of phase 15 (a))
 and read just after; each
 lane the window carries must have been launched there. Prints the
 card's name and power limit, one JSON line with every kernel's numbers
@@ -144,7 +168,8 @@ launches under "wide_launches"; the golden suites' launches under
 "golden_suites_launches"; the byte lane's entry with phase 12's numbers
 under "byte_lane"; the launches per shard of phase 14's mesh under
 "shard_launches" and by configuration under "mesh"; the scatter kernel's
-entry with phase 14's numbers), the seconds of each phase, and as the
+entry with phase 14's numbers; each kernel's launches per shard of
+phase 15 (a) under "sharded"), the seconds of each phase, and as the
 last line
 {"ok": true, "device": {...}}.
 
@@ -228,6 +253,9 @@ PHASE_SECONDS = {}
 # each configuration phase's start-up: call of main to first chunk
 # submitted, in its first engine run
 STARTUP_MS = {}
+# the host path's files of a configuration phase, by label, where a later
+# phase holds its own runs to them (phase 15: phase 8's)
+HOST_FILES = {}
 
 
 def lane_label(pack2) -> str:
@@ -679,6 +707,8 @@ def cli_phase(files, engine_rps: float) -> dict:
                 f.write(data)
             log(f"cli: {which} file written, {len(data)} bytes")
 
+        reports = {}
+
         def run(tag, which="clean", extra=()):
             _, want, want_matched = files[which]
             out = os.path.join(tmp, f"{tag}.fastq")
@@ -689,8 +719,8 @@ def cli_phase(files, engine_rps: float) -> dict:
             dt = time.perf_counter() - t0
             with open(out, "rb") as f:
                 got = f.read()
-            with open(rep) as f:
-                matched = json.load(f)["read_counts"]["read1_with_adapter"]
+            reports[tag] = report_parts(rep)
+            matched = reports[tag]["read_counts"]["read1_with_adapter"]
             if got != want:
                 fail(f"cli {tag}: output differs from the per-read host "
                      f"path ({len(got)} vs {len(want)} bytes)")
@@ -786,7 +816,8 @@ def cli_phase(files, engine_rps: float) -> dict:
     if accel.FALLBACK_COUNT != fallbacks:
         fail(f"cli: {accel.FALLBACK_COUNT - fallbacks} fallbacks "
              f"({accel.LAST_FALLBACK})")
-    return dict(windows=windows, golden=golden)
+    return dict(windows=windows, golden=golden,
+                report=reports["counted_clean"])
 
 
 def report_parts(path: str) -> dict:
@@ -838,7 +869,7 @@ class OrientationTags:
 
 
 def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
-                 outputs=None, files=None, chunk_bytes=None):
+                 outputs=None, files=None, chunk_bytes=None, keep=False):
     """Phases 6 to 11: one configuration through cli.main on the card
     under CUTADAPT_TPU_TORCH_BATCH=require at -j 1, held to the port's
     per-read host path (CUTADAPT_TPU_TORCH_BATCH=0): every file the run
@@ -856,7 +887,8 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
     take one sequential pass over their side's reads for the host time
     per stage. Returns (recorder, launches (with the wide ones under
     "wide"), reads/s, the median wall time in seconds, the counted run's
-    report parts)."""
+    report parts). With ``keep``, the host path's files stay in
+    HOST_FILES[label] for a later phase."""
     import shutil
     import tempfile
 
@@ -910,6 +942,8 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
             return got, report_parts(rep), dt
 
         want, want_rep, dt = run("host", "0")
+        if keep:
+            HOST_FILES[label] = want
         log(f"{label}: {n_reads} reads ({sum(map(len, inputs))} bytes in "
             f"{len(inputs)} files) through the per-read host path: "
             f"{dt:.1f} s, {len(want)} files out "
@@ -1593,6 +1627,453 @@ def reducer_mesh_phase(data, pairs, clock_hz, sms) -> dict:
     return result
 
 
+# phase 15: input sharding over processes (parallel/multihost.py)
+SHARDS = 4
+# (b)'s file: the flagship file written this many times over
+SHARD_COPIES = 4
+SHARD_PROCESS_COUNTS = (1, 2, 4)
+# every process phase 15 starts must end within this many seconds
+SHARD_TIMEOUT = 120
+# the measurement tools' own limit (fuzz_parity_torch.py runs 20
+# iterations of two main calls each)
+TOOL_TIMEOUT = 300
+FUZZ_ITERATIONS = 20
+FUZZ_SEED = 15000
+
+
+def subprocess_env(**extra) -> dict:
+    """The environment of a process phase 15 starts: none of the
+    CUTADAPT_TPU_* variables this process has set, the checkout first on
+    the path, ``extra`` on top."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("CUTADAPT_TPU")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    env.update(extra)
+    return env
+
+
+def run_process(label, cmd, env, timeout=SHARD_TIMEOUT, cwd=None):
+    """Run cmd to its end; fails the smoke run on a non-zero exit or when
+    it outlives ``timeout`` (killed then). Returns (stdout, stderr,
+    seconds)."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=timeout, cwd=cwd or HERE)
+    except subprocess.TimeoutExpired:
+        fail(f"{label}: did not end within {timeout} s")
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label}: exit {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    return proc.stdout, proc.stderr, dt
+
+
+def tagged_json(label, text, tag) -> dict:
+    """The JSON object of the line ``<tag> {...}`` in a tool's output."""
+    line = next((ln for ln in text.splitlines()[::-1]
+                 if ln.startswith(tag + " {")), None)
+    if line is None:
+        fail(f"{label}: no '{tag} {{...}}' line in its output:\n"
+             f"{text[-2000:]}")
+    return json.loads(line.split(" ", 1)[1])
+
+
+def same_file(label, path, want: bytes, copies: int = 1) -> None:
+    """The file at ``path`` is ``want`` repeated ``copies`` times, read
+    a copy at a time."""
+    with open(path, "rb") as f:
+        for i in range(copies):
+            got = f.read(len(want))
+            if got != want:
+                pos = next((j for j, (a, b) in enumerate(zip(got, want))
+                            if a != b), min(len(got), len(want)))
+                fail(f"{label}: copy {i} differs at byte {pos} ({len(got)} "
+                     f"vs {len(want)} bytes)")
+        if f.read(1):
+            fail(f"{label}: longer than {copies} x {len(want)} bytes")
+
+
+def stats_parts(stats, paired) -> dict:
+    """The report parts of a Statistics (as report_parts reads them from
+    a --json file), its adapters' names aside: unnamed adapters are
+    numbered per process."""
+    from cutadapt_tpu_torch import cli
+
+    rep = json.loads(cli.json_dumps(cli.json_report(
+        stats, [], "in", "in2" if paired else None, 1, paired, 0.5)))
+    return strip_names({k: rep[k] for k in ("read_counts", "basepair_counts",
+                                            "adapters_read1",
+                                            "adapters_read2")})
+
+
+def strip_names(parts) -> dict:
+    parts = json.loads(json.dumps(parts))
+    for key in ("adapters_read1", "adapters_read2"):
+        for adapter in parts.get(key) or []:
+            adapter.pop("name", None)
+    return parts
+
+
+def merged_pickles(label, paths):
+    """merge_statistics of the shard pickles, each first loaded by
+    torch_fixtures.load_host_pickle, which refuses any torch object (a
+    CUDA tensor must never reach a pickle)."""
+    import torch_fixtures as fx
+    from cutadapt_tpu_torch.parallel.multihost import merge_statistics
+
+    for path in paths:
+        try:
+            fx.load_host_pickle(path)
+        except Exception as e:
+            fail(f"{label}: {path}: {e}")
+    return merge_statistics(paths)
+
+
+def shard_phase(data, want_out, want_report, pairs, want8_report, clock_hz,
+                sms) -> dict:
+    """Phase 15: the input sharded over processes. (a) --shard i/SHARDS
+    through cli.main in this process, one shard after another, on the
+    flagship file, each shard's launches counted; the outputs
+    concatenated equal phase 5's output and the merged pickles its
+    report; the plan pass alone timed. (b) the flagship file written
+    SHARD_COPIES times over, unsharded through python -m
+    cutadapt_tpu_torch and through tools/multihost_run_torch.py at each
+    of SHARD_PROCESS_COUNTS processes, all shards at once, each held to
+    phase 5's output repeated and the unsharded report; reads/s, each
+    shard process's seconds, the plan pass, a process's start-up and the
+    card's estimated idle share. (c) phase 8's paired files through the
+    coordinator on 2 processes with CUTADAPT_TPU_TORCH_DEVICE_STATS=1,
+    held to phase 8's files and report. (d) two --shard i/2 processes of
+    the flagship file in one gloo group. (e) the measurement tools."""
+    import shutil
+    import tempfile
+
+    import cutadapt_tpu_torch.batch_pipeline as bp
+    import torch_fixtures as fx
+    from cutadapt_tpu_torch import accel, cli
+    from cutadapt_tpu_torch.ops import align_cuda
+    from cutadapt_tpu_torch.parallel.multihost import shard_byte_range_env
+    from cutadapt_tpu_torch.report import full_report
+
+    result = {}
+    coordinator = os.path.join(HERE, "tools", "multihost_run_torch.py")
+    flag_args = ["-a", fx.ADAPTER, "-e", "0.1", "-O", "3"]
+    want_parts = strip_names(want_report)
+    n_reads = data.count(b"\n") // 4
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        flag = os.path.join(tmp, "flagship.fastq")
+        with open(flag, "wb") as f:
+            f.write(data)
+
+        # (a) in this process, one shard after another
+        t0 = time.perf_counter()
+        for i in range(SHARDS):
+            shard_byte_range_env([flag], i, SHARDS)
+        plan_s = (time.perf_counter() - t0) / SHARDS
+        saved = {k: os.environ.pop(k, None) for k in (
+            "CUTADAPT_TPU_TORCH_CHUNK_BYTES", "CUTADAPT_TPU_TORCH_DEVICES",
+            "CUTADAPT_TPU_TORCH_DEVICE_STATS")}
+        os.environ["CUTADAPT_TPU_TORCH_BATCH"] = "require"
+        times = accel.RUN_TIMES
+        rec = Recorder(bp.locate_packed,
+                       warming=lambda: times["device_ready"] is None)
+        fallbacks = accel.FALLBACK_COUNT
+        per_shard, outs, pickles = [], [], []
+        bp.locate_packed = rec
+        try:
+            for i in range(SHARDS):
+                out = os.path.join(tmp, f"a{i}.fastq")
+                chunk_launches = rec.launches(True)
+                warm = dict(rec.warmup)
+                align_cuda.reset_launch_counters()
+                t0 = time.perf_counter()
+                cli.main(["--quiet", *flag_args, "-o", out, "--shard",
+                          f"{i}/{SHARDS}", flag])
+                dt = time.perf_counter() - t0
+                launches = dict(align_cuda.LAUNCHES)
+                per_shard.append(dict(
+                    launches=launches,
+                    chunk_launches=rec.launches(True) - chunk_launches,
+                    warmup_launches={k: rec.warmup[k] - warm[k]
+                                     for k in warm},
+                    seconds=dt))
+                if per_shard[-1]["chunk_launches"] <= 0:
+                    fail(f"sharding (a): shard {i}/{SHARDS} launched no "
+                         f"2-bit chunk batch ({launches})")
+                outs.append(out)
+                pickles.append(out + ".shard-stats.pickle")
+        finally:
+            bp.locate_packed = rec.fn
+            for k, v in saved.items():
+                if v is not None:
+                    os.environ[k] = v
+        if accel.FALLBACK_COUNT != fallbacks:
+            fail(f"sharding (a): fell back ({accel.LAST_FALLBACK})")
+        got = b"".join(open(p, "rb").read() for p in outs)
+        if got != want_out:
+            fail(f"sharding (a): the {SHARDS} shards' outputs concatenated "
+                 f"({len(got)} bytes) differ from phase 5's output "
+                 f"({len(want_out)} bytes)")
+        merged = merged_pickles("sharding (a)", pickles)
+        if stats_parts(merged, False) != want_parts:
+            fail("sharding (a): the merged statistics differ from phase 5's "
+                 "--json report")
+        nums = kernel_numbers(rec, True, clock_hz, sms)
+        if nums["max_abs_err"]:
+            fail("sharding (a): the kernel differs from the plain version")
+        a_device_ms = nums["run_kernel_ms"]
+        log(f"sharding (a): --shard i/{SHARDS} in this process on the "
+            f"flagship file ({len(data)} bytes): outputs concatenated equal "
+            f"to phase 5's output, merged pickles (no torch object) equal "
+            f"to its report; per shard 2-bit chunk launches "
+            f"{[d['chunk_launches'] for d in per_shard]}, warm-ups "
+            f"{[d['warmup_launches'] for d in per_shard]}, seconds "
+            f"{[round(d['seconds'], 3) for d in per_shard]}; plan pass "
+            f"(shard_byte_range_env) {plan_s * 1e3:.1f} ms per shard; "
+            f"2-bit kernel {shape_line(nums)}")
+        result["in_process"] = dict(
+            per_shard=per_shard, plan_ms=plan_s * 1e3,
+            device_ms=a_device_ms, max_abs_err=nums["max_abs_err"],
+            per_shape=[{k: d[k] for k in PER_SHAPE_KEYS}
+                       for d in nums["per_shape"]])
+
+        # (b) processes sharing the card
+        big = os.path.join(tmp, "flagship_x4.fastq")
+        with open(big, "wb") as f:
+            for _ in range(SHARD_COPIES):
+                f.write(data)
+        n_big = SHARD_COPIES * n_reads
+        t0 = time.perf_counter()
+        shard_byte_range_env([big], 0, SHARDS)
+        big_plan_s = time.perf_counter() - t0
+        env = subprocess_env(CUTADAPT_TPU_TORCH_BATCH="require")
+        # one process's start-up up to its first kernel launch, by part
+        startup_code = (
+            "import json, time\n"
+            "t = [time.perf_counter()]\n"
+            "import torch\n"
+            "t.append(time.perf_counter())\n"
+            "import cutadapt_tpu_torch.cli, cutadapt_tpu_torch.accel\n"
+            "t.append(time.perf_counter())\n"
+            "torch.zeros(1, device='cuda'); torch.cuda.synchronize()\n"
+            "t.append(time.perf_counter())\n"
+            "from cutadapt_tpu_torch.ops import align_cuda\n"
+            "align_cuda._library()\n"
+            "t.append(time.perf_counter())\n"
+            "print('startup ' + json.dumps(dict(zip(('import_torch', "
+            "'import_port', 'cuda_context', 'kernel_library'), "
+            "(b - a for a, b in zip(t, t[1:]))))))\n")
+        stdout, _, startup_s = run_process(
+            "sharding (b) start-up", [sys.executable, "-c", startup_code], env)
+        startup_parts = tagged_json("sharding (b) start-up", stdout,
+                                    "startup")
+        full = os.path.join(tmp, "b_full.fastq")
+        full_pickle = full + ".pickle"
+        _, _, full_s = run_process(
+            "sharding (b) unsharded",
+            [sys.executable, "-m", "cutadapt_tpu_torch", "--quiet",
+             *flag_args, "-o", full, big],
+            {**env, "CUTADAPT_TPU_TORCH_STATS_PICKLE": full_pickle})
+        same_file("sharding (b) unsharded", full, want_out, SHARD_COPIES)
+        os.unlink(full)
+        unsharded = merged_pickles("sharding (b) unsharded", [full_pickle])
+        want_text = full_report(unsharded, 0, 0.5).strip()
+        log(f"sharding (b): {n_big} reads ({SHARD_COPIES} x the flagship "
+            f"file, {os.path.getsize(big)} bytes) unsharded through "
+            f"python -m cutadapt_tpu_torch: {full_s:.3f} s = "
+            f"{n_big / full_s:.1f} reads/s, output equal to phase 5's "
+            f"output x {SHARD_COPIES}; one process's start-up (interpreter, "
+            f"import, CUDA context, kernel library) {startup_s * 1e3:.1f} "
+            f"ms, seconds by part "
+            f"{ {k: round(v, 3) for k, v in startup_parts.items()} }; plan "
+            f"pass (shard_byte_range_env) {big_plan_s * 1e3:.1f} ms; "
+            f"os.cpu_count() {os.cpu_count()}")
+        runs = {}
+        for n in SHARD_PROCESS_COUNTS:
+            out = os.path.join(tmp, f"b{n}.fastq")
+            stdout, stderr, dt = run_process(
+                f"sharding (b) -n {n}",
+                [sys.executable, coordinator, "-n", str(n), "--", *flag_args,
+                 "-o", out, big], env, timeout=SHARD_TIMEOUT * 2)
+            same_file(f"sharding (b) -n {n}", out, want_out, SHARD_COPIES)
+            os.unlink(out)
+            if stdout.strip() != want_text:
+                fail(f"sharding (b) -n {n}: the merged report differs from "
+                     f"the unsharded run's")
+            timing = tagged_json(f"sharding (b) -n {n}", stderr,
+                                 "multihost_run_torch")
+            idle = 1 - SHARD_COPIES * a_device_ms / 1e3 / dt
+            runs[n] = dict(seconds=dt, reads_per_sec=n_big / dt,
+                           shard_seconds=timing["shard_seconds"],
+                           concat_seconds=timing["concat_seconds"],
+                           merge_seconds=timing["merge_seconds"],
+                           idle_share_estimate=idle)
+            log(f"sharding (b) -n {n}: {dt:.3f} s = {n_big / dt:.1f} reads/s "
+                f"({n_big / dt / (n_big / full_s):.3f} x the unsharded run); "
+                f"each shard process {n_big // n} reads in "
+                f"{[round(x, 3) for x in timing['shard_seconds']]} s; "
+                f"concatenation {timing['concat_seconds']:.3f} s, merge "
+                f"{timing['merge_seconds']:.3f} s; output and merged report "
+                f"equal to the unsharded run's; idle share estimated from "
+                f"(a)'s kernel time x {SHARD_COPIES}: {idle:.6f}")
+        result["processes"] = dict(
+            reads=n_big, unsharded_seconds=full_s,
+            unsharded_reads_per_sec=n_big / full_s,
+            startup_ms=startup_s * 1e3, startup_seconds=startup_parts,
+            plan_ms=big_plan_s * 1e3,
+            cpu_count=os.cpu_count(), runs=runs)
+
+        # (c) paired TruSeq on 2 processes with the reducer
+        p1, p2 = (os.path.join(tmp, f"truseq.{k}.fastq") for k in (1, 2))
+        for path, side in zip((p1, p2), pairs):
+            with open(path, "wb") as f:
+                f.write(side)
+        o1, o2 = (os.path.join(tmp, f"c.{k}.fastq") for k in (1, 2))
+        stdout, stderr, dt = run_process(
+            "sharding (c)",
+            [sys.executable, coordinator, "-n", "2", "--keep-shards", "--",
+             "-a", fx.TRUSEQ_R1, "-A", fx.TRUSEQ_R2, "-q", "20", "-m", "20",
+             "-o", o1, "-p", o2, p1, p2],
+            subprocess_env(CUTADAPT_TPU_TORCH_BATCH="require",
+                           CUTADAPT_TPU_TORCH_DEVICE_STATS="1"))
+        want8 = HOST_FILES.pop("paired")
+        for path, name in ((o1, "out.1.fastq"), (o2, "out.2.fastq")):
+            same_file(f"sharding (c) {name}", path, want8[name])
+        merged = merged_pickles("sharding (c)", [
+            f"{o1}.shard{i}of2.stats.pickle" for i in range(2)])
+        if stats_parts(merged, True) != strip_names(want8_report):
+            fail("sharding (c): the merged statistics differ from phase 8's "
+                 "--json report")
+        if stdout.strip() != full_report(merged, 0, 0.5).strip():
+            fail("sharding (c): the coordinator's report differs from the "
+                 "merged pickles'")
+        timing = tagged_json("sharding (c)", stderr, "multihost_run_torch")
+        n_pairs = pairs[0].count(b"\n") // 4
+        result["paired"] = dict(seconds=dt, pairs_per_sec=n_pairs / dt,
+                                shard_seconds=timing["shard_seconds"])
+        log(f"sharding (c): phase 8's {n_pairs} paired TruSeq pairs on 2 "
+            f"processes with CUTADAPT_TPU_TORCH_DEVICE_STATS=1: R1 and R2 "
+            f"equal to phase 8's files, merged pickles (no torch object) "
+            f"equal to its report; {dt:.3f} s = {n_pairs / dt:.1f} pairs/s, "
+            f"shard processes {[round(x, 3) for x in timing['shard_seconds']]}"
+            f" s")
+
+        # (d) two --shard i/2 processes in one gloo group
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist_env = subprocess_env(
+            CUTADAPT_TPU_TORCH_BATCH="require",
+            CUTADAPT_TPU_TORCH_DIST_COORDINATOR=f"127.0.0.1:{port}",
+            CUTADAPT_TPU_TORCH_DIST_NPROCS="2")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "cutadapt_tpu_torch", "--debug",
+             *flag_args, "--shard", f"{i}/2", "-o",
+             os.path.join(tmp, f"d{i}.fastq"), flag],
+            env={**dist_env, "CUTADAPT_TPU_TORCH_DIST_PID": str(i)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=HERE) for i in range(2)]
+        texts = []
+        try:
+            for i, proc in enumerate(procs):
+                try:
+                    out_text, err_text = proc.communicate(
+                        timeout=max(1.0, SHARD_TIMEOUT
+                                    - (time.perf_counter() - t0)))
+                except subprocess.TimeoutExpired:
+                    fail(f"sharding (d): shard {i}/2 did not end within "
+                         f"{SHARD_TIMEOUT} s")
+                texts.append(out_text + err_text)
+                if proc.returncode != 0:
+                    fail(f"sharding (d): shard {i}/2 exit {proc.returncode}:"
+                         f"\n{texts[-1][-3000:]}")
+                if f"process group: rank {i} of 2 (gloo" not in texts[-1]:
+                    fail(f"sharding (d): shard {i}/2 did not join the group:"
+                         f"\n{texts[-1][-3000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        dt = time.perf_counter() - t0
+        got = b"".join(open(os.path.join(tmp, f"d{i}.fastq"), "rb").read()
+                       for i in range(2))
+        if got != want_out:
+            fail("sharding (d): the two grouped shards' outputs concatenated "
+                 "differ from phase 5's output")
+        result["group"] = dict(seconds=dt)
+        log(f"sharding (d): two --shard i/2 processes joined one gloo group "
+            f"(CUTADAPT_TPU_TORCH_DIST_COORDINATOR=127.0.0.1:{port}), both "
+            f"exit 0 in {dt:.3f} s, outputs concatenated equal to phase 5's "
+            f"output")
+
+        # (e) the measurement tools, each once
+        tools = os.path.join(HERE, "tools")
+        tool_env = subprocess_env()
+        tool_out = {}
+        for name, args in (
+                ("kernel_bench_torch", ["32768", "20", "3"]),
+                ("profile_xfer_torch", []),
+                ("profile_batch_torch", []),
+                ("fuzz_parity_torch", [str(FUZZ_ITERATIONS),
+                                       str(FUZZ_SEED)])):
+            stdout, stderr, dt = run_process(
+                name, [sys.executable, os.path.join(tools, name + ".py"),
+                       *args], tool_env, timeout=TOOL_TIMEOUT)
+            tool_out[name] = tagged_json(name, stdout, name)
+            tool_out[name]["seconds"] = dt
+        fuzz = tool_out["fuzz_parity_torch"]
+        if fuzz["mismatches"] or fuzz["iterations"] != FUZZ_ITERATIONS:
+            fail(f"fuzz_parity_torch: {fuzz}")
+        bench = tool_out["kernel_bench_torch"]
+        log(f"kernel_bench_torch 32768 20 3: {bench['lane']} lane, "
+            f"32768 x {bench['row_bytes']} B, rows/s per pass "
+            f"{[round(p['rows_per_sec'], 1) for p in bench['passes']]}, ms "
+            f"per launch "
+            f"{[round(p['ms_per_launch'], 5) for p in bench['passes']]}")
+        xfer = tool_out["profile_xfer_torch"]
+        log("profile_xfer_torch: " + "; ".join(
+            f"{c['bytes']} B {c['memory']} H2D {c['h2d_ms']:.4f} ms "
+            f"({c['h2d_gb_s']:.2f} GB/s) D2H {c['d2h_ms']:.4f} ms "
+            f"({c['d2h_gb_s']:.2f} GB/s)" for c in xfer["copies"])
+            + f"; result fetch round trip "
+            f"{xfer['result_fetch_round_trip_ms']:.4f} ms")
+        prof = tool_out["profile_batch_torch"]
+        stage_ns = {k: round(v, 1)
+                    for k, v in prof["stage_ns_per_read"].items()}
+        log(f"profile_batch_torch: {prof['reads']} reads, host ns/read "
+            f"{stage_ns}, pipelined {prof['pipelined_reads_per_sec']:.1f} "
+            f"reads/s")
+        traced = prof["profiler"]
+        log(f"profile_batch_torch under torch.profiler: "
+            f"{traced['device_ms']:.4f} ms of device time in a "
+            f"{traced['seconds']:.3f} s pipelined pass (busy share "
+            f"{traced['busy_share']:.6f}); by name " + "; ".join(
+                f"{d['name'][:48]} x{d['count']} {d['device_ms']:.4f} ms"
+                for d in traced["by_name"]))
+        if traced["device_ms"] <= 0:
+            log("profile_batch_torch: torch.profiler recorded no device "
+                "time on this card")
+        log("submit split (ns/read): " + json.dumps(
+            {k: round(v, 1)
+             for k, v in prof["submit_split_ns_per_read"].items()}))
+        log(f"fuzz_parity_torch {FUZZ_ITERATIONS} {FUZZ_SEED}: "
+            f"{fuzz['mismatches']} mismatches on the card, engine launches "
+            f"{fuzz['launches']}, {fuzz['engine_fallbacks']} runs the engine "
+            f"declined")
+        result["tools"] = tool_out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return result
+
+
 def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2):
     """The DP work this batch's data needs: each read runs its active
     columns (min_n, min(max_n, width)] over rows 0..m. Returns (active
@@ -1914,13 +2395,13 @@ def main() -> int:
     pairs = fx.make_pairs(N_PAIRS)
     log(f"paired: {N_PAIRS} pairs of 2 x {fx.PAIR_READ_LEN} bp generated "
         f"({time.perf_counter() - t0:.1f} s)")
-    rec8, launches8, rps8, wall8, _ = config_phase(
+    rec8, launches8, rps8, wall8, rep8 = config_phase(
         "paired", ["-a", fx.TRUSEQ_R1, "-A", fx.TRUSEQ_R2, "-q", "20",
                    "-m", "20"],
         list(pairs),
         lambda tables: "R1" if tables.spec.reference == fx.TRUSEQ_R1
         else "R2",
-        ["R1", "R2"], lanes=(True, False),
+        ["R1", "R2"], lanes=(True, False), keep=True,
     )
     phase_done("8 paired")
     # 9. revcomp amplicons: the forward and the rc dispatch of each chunk
@@ -2025,8 +2506,12 @@ def main() -> int:
     scatter = scatter_phase()
     mesh14 = reducer_mesh_phase(data, pairs, clock_mhz * 1e6, sms)
     step14 = sharded_step_phase()
-    del pairs
     phase_done("14 reducer and mesh")
+    # 15. the input sharded over processes
+    shard15 = shard_phase(data, main_out, cli_runs["report"], pairs, rep8,
+                          clock_mhz * 1e6, sms)
+    del pairs
+    phase_done("15 sharding")
     busy = {}
     path_lanes = {}
     for path, rec, launches, lanes, wall in (
@@ -2082,6 +2567,13 @@ def main() -> int:
     log(f"mesh_one_device_reads_per_sec "
         f"{mesh_flag['one_device_reads_per_sec']}")
     log(f"mesh_idle_share {mesh_flag['idle_share']}")
+    procs15 = shard15["processes"]
+    log(f"shard_unsharded_reads_per_sec {procs15['unsharded_reads_per_sec']}")
+    for n, run15 in procs15["runs"].items():
+        log(f"shard_reads_per_sec_n{n} {run15['reads_per_sec']}")
+    log(f"shard_process_startup_ms {procs15['startup_ms']}")
+    log(f"shard_plan_pass_ms {procs15['plan_ms']}")
+    log(f"cpu_count {procs15['cpu_count']}")
 
     src = "cutadapt_tpu_torch/csrc/align_locate.cu"
     kernels = []
@@ -2146,6 +2638,22 @@ def main() -> int:
     # launches per shard of the mesh phase (all lanes of each dispatch)
     for kernel in kernels:
         kernel["shard_launches"] = mesh14["mesh"]["shard_launches"]
+    # phase 15 (a): each --shard run in this process, counted apart
+    in15 = shard15["in_process"]
+    kernels[0]["sharded"] = dict(
+        chunk_launches_per_shard=[d["chunk_launches"]
+                                  for d in in15["per_shard"]],
+        warmup_launches_per_shard=[d["warmup_launches"]["pack2"]
+                                   for d in in15["per_shard"]],
+        max_abs_err=in15["max_abs_err"], per_shape=in15["per_shape"])
+    kernels[1]["sharded"] = dict(
+        chunk_launches_per_shard=[d["launches"]["pack4"]
+                                  - d["warmup_launches"]["pack4"]
+                                  for d in in15["per_shard"]],
+        warmup_launches_per_shard=[d["warmup_launches"]["pack4"]
+                                   for d in in15["per_shard"]])
+    kernels[2]["sharded"] = dict(chunk_launches_per_shard=[
+        d["launches"]["byte"] for d in in15["per_shard"]])
     # the scatter kernel: its path is phase 14's; the reported time, bound
     # and library call are those of one flagship chunk's flush
     top = next(d for d in scatter if d["entry"] == "flush")
@@ -2165,6 +2673,9 @@ def main() -> int:
                           flushes=c["flushes"])
               for label, c in mesh14["mesh"]["configs"].items()},
         sharded_step=step14,
+        # phase 15 (c) runs the reducer in the shard processes, whose
+        # counters this process does not see
+        sharded=dict(chunk_launches_per_shard=None),
     ))
     log(f"reads_per_sec {rps}")
     log("seconds per phase " + json.dumps(

@@ -58,6 +58,9 @@ Environment (all read per run):
 - ``CUTADAPT_TPU_TORCH_DEVICE_STATS``: the statistics reducer
   (_make_stats_reducer): unset means on exactly when a mesh is active,
   ``1`` on without one, ``0`` off.
+- ``CUTADAPT_TPU_TORCH_DIST_COORDINATOR`` (``host:port``), with
+  ``CUTADAPT_TPU_TORCH_DIST_NPROCS`` and ``_DIST_PID``: the opt-in
+  process group of a sharded run (_maybe_init_distributed).
 
 Once the engine path is chosen it runs on the device or fails: there
 is no card, the kernel does not build or a launch fails, the run ends
@@ -1235,18 +1238,66 @@ def _setup_mesh(device) -> None:
     set_shard_mesh(Mesh(devices) if len(devices) > 1 else None)
 
 
+# the process group's rendezvous and set-up wait at most this long for
+# every process to join: jax.distributed's default, so that one process
+# that dies does not hold the others for torch's 30 minutes
+DIST_TIMEOUT_S = 300
+
+
+def _maybe_init_distributed() -> None:
+    """Opt-in process group (CUTADAPT_TPU_TORCH_DIST_COORDINATOR =
+    'host:port', with CUTADAPT_TPU_TORCH_DIST_NPROCS and _DIST_PID, or
+    torch's own WORLD_SIZE and RANK where those are unset). The sharded
+    design does not need it: every process runs independently over its
+    input shard (parallel/multihost.py) and no collective runs during
+    processing; the group lets runtimes that require every process to
+    join one do so. Backend gloo: no tensor crosses it, and NCCL would
+    refuse several ranks on one card. Idempotent; a group that cannot
+    form is logged and the process goes on alone, which the shard
+    contract allows (this is no fallback from the device)."""
+    coord = os.environ.get("CUTADAPT_TPU_TORCH_DIST_COORDINATOR")
+    if not coord:
+        return
+    import datetime
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    nprocs = (os.environ.get("CUTADAPT_TPU_TORCH_DIST_NPROCS")
+              or os.environ.get("WORLD_SIZE"))
+    pid = (os.environ.get("CUTADAPT_TPU_TORCH_DIST_PID")
+           or os.environ.get("RANK"))
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coord}",
+            world_size=int(nprocs) if nprocs is not None else -1,
+            rank=int(pid) if pid is not None else -1,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S),
+        )
+    except (RuntimeError, ValueError) as e:
+        logger.warning(
+            "torch.distributed.init_process_group failed (%s); continuing "
+            "as an independent single process", e,
+        )
+        return
+    logger.debug("process group: rank %d of %d (gloo, %s)",
+                 dist.get_rank(), dist.get_world_size(), coord)
+
+
 def _setup_device(*sides, extra_tasks=()):
     """Build one engine for each (stages, filters[, engine keywords]) of
     ``sides``, all on one device: CUTADAPT_TPU_TORCH_DEVICE, unset
-    meaning CUDA, and set the shard mesh (_setup_mesh). On CUDA, pin the
-    device index, build the kernel libraries (the scatter kernel's where
-    the statistics reducer will run), then warm every engine before any
-    drive thread starts, launching each lane of each kernel task once on
-    every device of the mesh (wide where the engine wants adapter-side
-    coordinates); ``extra_tasks`` are tasks that run outside the
-    engines' stages (--pair-adapters, paired --revcomp). Failures, on
-    any shard, raise DeviceError; there is no fallback to fewer shards,
-    to one device or to the host path from here."""
+    meaning CUDA, join the opt-in process group
+    (_maybe_init_distributed) and set the shard mesh (_setup_mesh). On
+    CUDA, pin the device index, build the kernel libraries (the scatter
+    kernel's where the statistics reducer will run), then warm every
+    engine before any drive thread starts, launching each lane of each
+    kernel task once on every device of the mesh (wide where the engine
+    wants adapter-side coordinates); ``extra_tasks`` are tasks that run
+    outside the engines' stages (--pair-adapters, paired --revcomp).
+    Failures, on any shard, raise DeviceError; there is no fallback to
+    fewer shards, to one device or to the host path from here."""
     import torch
 
     from .batch_pipeline import BatchPipelineEngine
@@ -1260,6 +1311,7 @@ def _setup_device(*sides, extra_tasks=()):
             build_library()
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+        _maybe_init_distributed()
         _setup_mesh(device)
         if device.type == "cuda" and _stats_reducer_on():
             stats_cuda.build_library()

@@ -145,9 +145,10 @@ _OPTION_GROUPS = (
          dict(type=int, default=4000000, help=SUPPRESS)),
         (('--no-index',),
          dict(action='store_false', dest='index', default=True, help=SUPPRESS)),
-        # multi-host data parallelism: accepted by the parser and
-        # refused (see _apply_shard_option). Not part of the
-        # reference-compatible help surface, hence suppressed.
+        # multi-process data parallelism: process shard INDEX of COUNT
+        # (record-aligned byte range computed internally; see
+        # parallel/multihost.py). Not part of the reference-compatible
+        # help surface, hence suppressed.
         (('--shard',),
          dict(default=None, metavar='INDEX/COUNT', help=SUPPRESS)),
         ),
@@ -581,14 +582,35 @@ def make_input_paths(
     return InputPaths(*inputs, interleaved=interleaved)
 
 
-def _apply_shard_option(args) -> None:
-    """--shard INDEX/COUNT (multi-host input sharding) is not ported
-    yet: a run that asks for it is refused."""
-    if args.shard:
+def _apply_shard_option(args, input_paths, interleaved: bool) -> None:
+    """--shard INDEX/COUNT: compute this run's record-aligned byte
+    range over the input file(s) and install it as the
+    CUTADAPT_TPU_TORCH_BYTE_RANGE contract every input opener honors
+    (parallel/multihost.maybe_range_readers). main() restores the
+    previous env value when the run finishes."""
+    if not args.shard:
+        return
+    idx_s, sep, cnt_s = args.shard.partition("/")
+    try:
+        index, count = int(idx_s), int(cnt_s)
+    except ValueError:
         raise CommandLineError(
-            "--shard (multi-host input sharding) is not supported by "
-            "cutadapt-tpu-torch yet"
+            f"--shard must be INDEX/COUNT (e.g. 0/4), got {args.shard!r}"
         )
+    if count < 1 or not 0 <= index < count:
+        raise CommandLineError(
+            f"--shard: INDEX must be in [0, COUNT), got {args.shard!r}"
+        )
+    from .parallel.multihost import shard_byte_range_env
+
+    try:
+        env = shard_byte_range_env(
+            input_paths.paths, index, count, interleaved=interleaved
+        )
+    except ValueError as e:
+        raise CommandLineError(str(e))
+    os.environ["CUTADAPT_TPU_TORCH_BYTE_RANGE"] = env
+    logger.debug("--shard %s -> byte range %s", args.shard, env)
 
 
 # Declarative argument-sanity rules: (applies(args, paired), message).
@@ -1345,10 +1367,11 @@ def main(cmdlineargs) -> Statistics:
         progress = DummyProgress()
     paired = determine_paired(args)
 
+    shard_env_prev = os.environ.get("CUTADAPT_TPU_TORCH_BYTE_RANGE")
     try:
         is_interleaved_input = args.interleaved and len(args.inputs) == 1
         input_paths = make_input_paths(args.inputs, paired, is_interleaved_input)
-        _apply_shard_option(args)
+        _apply_shard_option(args, input_paths, is_interleaved_input)
         check_arguments(args, paired)
         adapters, adapters2 = adapters_from_args(args)
         log_adapters(adapters, adapters2 if paired else None)
@@ -1392,12 +1415,34 @@ def main(cmdlineargs) -> Statistics:
         logger.error("%s", e)
         sys.exit(2 if isinstance(e, CommandLineError) else 1)
     finally:
+        if args.shard:
+            # restore the process env: main() may be called repeatedly
+            # in one process (tests, library use)
+            if shard_env_prev is None:
+                os.environ.pop("CUTADAPT_TPU_TORCH_BYTE_RANGE", None)
+            else:
+                os.environ["CUTADAPT_TPU_TORCH_BYTE_RANGE"] = shard_env_prev
         try:
             outfiles.close()
         except UnboundLocalError:
             pass
 
     elapsed = time.time() - start_time
+    stats_pickle = os.environ.get("CUTADAPT_TPU_TORCH_STATS_PICKLE")
+    if stats_pickle is None and args.shard and args.output:
+        # --shard runs always leave a mergeable statistics artifact for
+        # the coordinator (parallel/multihost.merge_statistics)
+        stats_pickle = f"{args.output}.shard-stats.pickle"
+    if stats_pickle:
+        # a shard run: pickle this process's Statistics for the merge
+        # across processes (parallel/multihost.merge_statistics),
+        # cutadapt's worker-pipe statistics protocol across processes.
+        # They hold host objects only: the statistics reducer's device
+        # bins were folded into numpy at the end of the drive.
+        import pickle
+
+        with open(stats_pickle, "wb") as f:
+            pickle.dump(stats, f)
     render = minimal_report if args.report == "minimal" else full_report
     logger.log(REPORT, "%s", render(stats, elapsed, args.gc_content / 100.0))
     if args.json is not None:

@@ -118,7 +118,15 @@ class InputPaths:
         self.interleaved = interleaved
 
     def open(self) -> InputFiles:
-        opened = [xopen_rb_raise_limit(p) for p in self.paths]
+        # multi-process input sharding: this process reads only its
+        # record-aligned byte range of each input (see
+        # parallel/multihost.py for the plan/merge contract)
+        from ..parallel.multihost import maybe_range_readers
+
+        opened = maybe_range_readers(
+            [xopen_rb_raise_limit(p) for p in self.paths],
+            os.environ.get("CUTADAPT_TPU_TORCH_BYTE_RANGE"),
+        )
         return InputFiles(*opened, interleaved=self.interleaved)
 
 

@@ -129,6 +129,15 @@ class ReaderProcess(mpctx.Process):
                         stack.enter_context(xopen_rb_raise_limit(p))
                         for p in self._c.paths
                     ]
+                    # the shard contract must hold on the
+                    # multiprocessing path too: this process re-opens
+                    # the raw paths, so re-apply the byte-range view
+                    from .parallel.multihost import maybe_range_readers
+
+                    opened = maybe_range_readers(
+                        opened,
+                        os.environ.get("CUTADAPT_TPU_TORCH_BYTE_RANGE"),
+                    )
                     detected = detect_file_format(opened[0])
                 except Exception as e:
                     send_failure(self._c.format_conn, e)

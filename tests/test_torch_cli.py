@@ -385,13 +385,6 @@ def test_quality_trimming_of_fasta_is_refused(port_env, tmp_path, caplog):
     assert "quality trimming or capping of FASTA input" in caplog.text
 
 
-def test_shard_is_refused(port_env, tmp_path, caplog):
-    with pytest.raises(SystemExit) as e:
-        run_case("small", tmp_path, ("--shard", "0/2"))
-    assert e.value.code == 2
-    assert "--shard" in caplog.text
-
-
 def test_jax_package_environment_leaves_the_port_alone(port_env, tmp_path):
     """The JAX package's variables do not steer the port: its engine
     stays on under CUTADAPT_TPU_BATCH=0 and its lane switches read only

@@ -910,3 +910,60 @@ def test_sharded_step_matches_unsharded_on_card(card, pack2, wide):
     assert align_cuda.LAUNCHES[lane] == 4
     assert align_cuda.WIDE_LAUNCHES[lane] == (4 if wide else 0)
     assert tbp.UNSHARDED_DISPATCHES == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["single", "paired"])
+def test_shard_runs_on_card_equal_the_unsharded_run(card, monkeypatch,
+                                                    tmp_path, kind):
+    """`--shard 0/2` and `--shard 1/2` through the port's main on the card
+    in require mode: each shard launches the kernel, the outputs
+    concatenate to the unsharded run's byte for byte and the merged
+    statistics pickles give its report; the pickles hold no torch
+    object."""
+    from cutadapt_tpu_torch.report import full_report
+
+    if kind == "single":
+        inputs = [tmp_path / "in.fastq"]
+        inputs[0].write_bytes(fx.add_ns(fx.make_dataset(20000), 0.05))
+        args = ["-a", f"a1={fx.ADAPTER}", "-e", "0.1", "-O", "3"]
+    else:
+        inputs = [tmp_path / "in.1.fastq", tmp_path / "in.2.fastq"]
+        for path, data in zip(inputs, fx.make_pairs(8000)):
+            path.write_bytes(data)
+        args = ["-a", f"a1={fx.TRUSEQ_R1}", "-A", f"a2={fx.TRUSEQ_R2}",
+                "-q", "20", "-m", "20"]
+    # named adapters: unnamed ones are numbered per process
+    names = ["out.1.fastq", "out.2.fastq"][: len(inputs)]
+
+    def outputs(d):
+        d.mkdir()
+        outs = ["-o", d / names[0]]
+        if len(names) == 2:
+            outs += ["-p", d / names[1]]
+        return outs
+
+    launches = _card_main(monkeypatch, ["--quiet", *args,
+                                        *outputs(tmp_path / "full"), *inputs])
+    assert launches["pack2"] > 0
+    pickles = []
+    for i in range(2):
+        d = tmp_path / f"shard{i}"
+        launches = _card_main(monkeypatch, [
+            "--quiet", *args, *outputs(d), "--shard", f"{i}/2", *inputs])
+        assert launches["pack2"] > 0
+        pickles.append(fx.load_host_pickle(d / (names[0]
+                                                + ".shard-stats.pickle")))
+    for name in names:
+        got = b"".join((tmp_path / f"shard{i}" / name).read_bytes()
+                       for i in range(2))
+        assert got == (tmp_path / "full" / name).read_bytes()
+    merged = pickles[0]
+    merged += pickles[1]
+    monkeypatch.setenv("CUTADAPT_TPU_TORCH_BATCH", "0")
+    from cutadapt_tpu_torch import cli
+
+    host = cli.main([str(a) for a in ["--quiet", *args,
+                                      *outputs(tmp_path / "host"), *inputs]])
+    assert merged.as_json() == host.as_json()
+    assert full_report(merged, 0, 0.5) == full_report(host, 0, 0.5)

@@ -65,6 +65,7 @@ PORT_MODULES = [
     "cutadapt_tpu_torch.ops.tables",
     "cutadapt_tpu_torch.parallel",
     "cutadapt_tpu_torch.parallel.mesh",
+    "cutadapt_tpu_torch.parallel.multihost",
     "cutadapt_tpu_torch.parallel.stats",
     "cutadapt_tpu_torch.parser",
     "cutadapt_tpu_torch.pipeline",
@@ -78,6 +79,12 @@ PORT_MODULES = [
     "cutadapt_tpu_torch.utils",
     "chip_smoke",
     "torch_fixtures",
+    # tools/: the port's coordinator and measurement tools
+    "multihost_run_torch",
+    "fuzz_parity_torch",
+    "profile_batch_torch",
+    "profile_xfer_torch",
+    "kernel_bench_torch",
 ]
 LEAK_CHECK = (
     "bad = sorted(m for m in sys.modules if m == 'jax'\n"
@@ -152,7 +159,8 @@ def test_port_imports_nothing_of_jax():
 
 def _fresh_python(*args):
     env = dict(os.environ,
-               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
+               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests"),
+                                           os.path.join(REPO, "tools")]))
     return subprocess.run(
         [sys.executable, *args], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,

@@ -26,6 +26,9 @@ for the paired-end cases, and :func:`accel_configs` reads the CLI
 configurations of ``tests/test_accel.py`` (:func:`accel_reads` copies
 its reads).
 
+:func:`load_host_pickle` loads a shard run's statistics pickle and
+refuses any torch object in it.
+
 Paired and revcomp workloads: :func:`make_pairs` makes Illumina TruSeq
 read pairs, :func:`make_amplicons` with ``rc_share`` amplicons of either
 orientation. The device mesh's check: :func:`write_mesh_pairs` and
@@ -674,6 +677,23 @@ def json_report(path) -> dict:
     for key in VOLATILE_REPORT_KEYS:
         report.pop(key, None)
     return report
+
+
+def load_host_pickle(path):
+    """The object pickled at ``path``; raises pickle.UnpicklingError if
+    it holds any object of a ``torch`` module (a tensor, on the card or
+    the CPU)."""
+    import pickle
+
+    class Unpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            if module == "torch" or module.startswith("torch."):
+                raise pickle.UnpicklingError(
+                    f"the pickle holds a torch object: {module}.{name}")
+            return super().find_class(module, name)
+
+    with open(path, "rb") as f:
+        return Unpickler(f).load()
 
 
 def golden_path(expected: str) -> str:
