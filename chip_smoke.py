@@ -152,11 +152,30 @@ Phases, each of which must pass:
    tools/profile_batch_torch.py (its submit split on a line of its own)
    and tools/fuzz_parity_torch.py 20 15000 on the card (0 mismatches).
    Every process the phase starts must exit 0 within its time limit.
+16. the engine's dispatch modes, each configuration through main as
+   phase 6 (its own launches, shapes, times and bounds, reads/s, idle
+   share) with the transfer counters of its counted run per read and
+   submit's host ns/read split as tools/profile_batch_torch.py splits it
+   (prefilter, windows_clean, pad_encode, upload, launch): (a) three
+   Illumina 3' adapters (TruSeq, Nextera, small RNA; -e 0.1 -O 3) on
+   262,144 make_reads reads, with CUTADAPT_TPU_TORCH_SHARED_UPLOAD at 1
+   and 0, both held to one run of the host path; shared, every upload
+   must carry one launch per adapter and feed three DP rows per row,
+   per task one launch, and the bytes per DP row must be about a third
+   of the per-task dispatch's; (b) CUTADAPT_TPU_TORCH_DEVICE_PREFILTER
+   at 1 and 0 on phase 5's flagship file (held to phase 5's host
+   output), phase 8's paired files (held to phase 8's host path) and
+   (a)'s file (also per task, where the shared upload must ship a third
+   of the bytes); on, every window of the stage must be dispatched (XFER
+   candidates plus the per-task host tail's rows, which XFER does not
+   count: the read count, per side the pair count). A kernel variant
+   launched in a counted run and not in its warm-up fails the phase.
 
 Launch counters are set to 0 just before each counted window (the main
 path's warm pass, the dirty lane, each counted CLI run, the golden
 cases, the counted runs of phases 6 to 12, the golden suites' process,
-each run of phase 14, each shard run of phase 15 (a))
+each run of phase 14, each shard run of phase 15 (a), the counted runs
+of phase 16)
 and read just after; each
 lane the window carries must have been launched there. Prints the
 card's name and power limit, one JSON line with every kernel's numbers
@@ -169,7 +188,8 @@ launches under "wide_launches"; the golden suites' launches under
 under "byte_lane"; the launches per shard of phase 14's mesh under
 "shard_launches" and by configuration under "mesh"; the scatter kernel's
 entry with phase 14's numbers; each kernel's launches per shard of
-phase 15 (a) under "sharded"), the seconds of each phase, and as the
+phase 15 (a) under "sharded"; phase 16's configurations under
+"dispatch_modes"), the seconds of each phase, and as the
 last line
 {"ok": true, "device": {...}}.
 
@@ -256,6 +276,7 @@ STARTUP_MS = {}
 # the host path's files of a configuration phase, by label, where a later
 # phase holds its own runs to them (phase 15: phase 8's)
 HOST_FILES = {}
+HOST_REPORTS = {}
 
 
 def lane_label(pack2) -> str:
@@ -355,6 +376,17 @@ class Recorder:
         # (lane name, B, Wp, task, wide) -> (enc, lengths, tables)
         self.inputs = {}
         self.warmup = {"pack2": 0, "pack4": 0, "byte": 0}
+        # (lane name, wide, the kernel's instantiation) of the warm-up's
+        # launches and of the others: what a launch may need compiled
+        self.warm_variants = set()
+        self.variants = set()
+
+    @staticmethod
+    def variant(tables, pack2, wide):
+        from cutadapt_tpu_torch.ops import align_cuda
+
+        return (lane_name(pack2), bool(wide), align_cuda.template_args(
+            align_cuda.LANE_BITS[pack2], align_cuda.kernel_layout(tables.m)))
 
     def launches(self, pack2, task=None, wide=None) -> int:
         return sum(1 for k in self.calls if k[0] == lane_name(pack2)
@@ -363,10 +395,12 @@ class Recorder:
     def __call__(self, enc, lengths, tables, pack2, wide=False):
         if self.warming():
             self.warmup[lane_name(pack2)] += 1
+            self.warm_variants.add(self.variant(tables, pack2, wide))
             return self.fn(enc, lengths, tables, pack2, wide=wide)
         key = (lane_name(pack2), enc.shape[0], enc.shape[1],
                self.task(tables), bool(wide))
         self.calls.append(key)
+        self.variants.add(self.variant(tables, pack2, wide))
         if key not in self.inputs:
             self.inputs[key] = (enc.clone(), lengths.clone(), tables)
         return self.fn(enc, lengths, tables, pack2, wide=wide)
@@ -869,7 +903,8 @@ class OrientationTags:
 
 
 def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
-                 outputs=None, files=None, chunk_bytes=None, keep=False):
+                 outputs=None, files=None, chunk_bytes=None, keep=False,
+                 host=None, env=None, probe=None):
     """Phases 6 to 11: one configuration through cli.main on the card
     under CUTADAPT_TPU_TORCH_BATCH=require at -j 1, held to the port's
     per-read host path (CUTADAPT_TPU_TORCH_BATCH=0): every file the run
@@ -887,8 +922,12 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
     take one sequential pass over their side's reads for the host time
     per stage. Returns (recorder, launches (with the wide ones under
     "wide"), reads/s, the median wall time in seconds, the counted run's
-    report parts). With ``keep``, the host path's files stay in
-    HOST_FILES[label] for a later phase."""
+    report parts). With ``keep``, the host path's files and report parts
+    stay in HOST_FILES[label] and HOST_REPORTS[label] for a later phase;
+    ``host`` names such a label to hold the runs to instead of running
+    the host path again. ``env`` holds environment variables set for the
+    phase's runs. ``probe`` (phase 16, a DispatchProbe) is entered around
+    the counted run and around each engine's sequential pass."""
     import shutil
     import tempfile
 
@@ -903,6 +942,8 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
     saved_chunk = os.environ.pop("CUTADAPT_TPU_TORCH_CHUNK_BYTES", None)
     if chunk_bytes:
         os.environ["CUTADAPT_TPU_TORCH_CHUNK_BYTES"] = str(chunk_bytes)
+    saved_env = {k: os.environ.get(k) for k in env or ()}
+    os.environ.update(env or {})
     if outputs is None:
         def outputs(d):
             outs = ["-o", os.path.join(d, "out.1.fastq")]
@@ -941,15 +982,19 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
                 started[tag] = accel.RUN_TIMES["first_submit"] - t0
             return got, report_parts(rep), dt
 
-        want, want_rep, dt = run("host", "0")
+        if host is not None:
+            want, want_rep = HOST_FILES[host], HOST_REPORTS[host]
+            log(f"{label}: held to {host}'s host path")
+        else:
+            want, want_rep, dt = run("host", "0")
+            log(f"{label}: {n_reads} reads ({sum(map(len, inputs))} bytes "
+                f"in {len(inputs)} files) through the per-read host path: "
+                f"{dt:.1f} s, {len(want)} files out "
+                f"{ {k: len(v) for k, v in list(want.items())[:8]} }, read "
+                f"counts {want_rep['read_counts']}, base pairs "
+                f"{want_rep['basepair_counts']}")
         if keep:
-            HOST_FILES[label] = want
-        log(f"{label}: {n_reads} reads ({sum(map(len, inputs))} bytes in "
-            f"{len(inputs)} files) through the per-read host path: "
-            f"{dt:.1f} s, {len(want)} files out "
-            f"{ {k: len(v) for k, v in list(want.items())[:8]} }, read "
-            f"counts {want_rep['read_counts']}, base pairs "
-            f"{want_rep['basepair_counts']}")
+            HOST_FILES[label], HOST_REPORTS[label] = want, want_rep
 
         def engine_run(tag):
             got, rep, dt = run(tag, "require")
@@ -999,7 +1044,11 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
         bp.locate_packed = rec
         align_cuda.reset_launch_counters()
         try:
-            engine_run("counted")
+            if probe is None:
+                engine_run("counted")
+            else:
+                with probe.counting(times):
+                    engine_run("counted")
         finally:
             bp.locate_packed = rec.fn
             accel._setup_device = setup
@@ -1021,10 +1070,19 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
         fail(f"{label}: these tasks and lanes were never launched: {missing}")
     for side, (engine, data) in enumerate(zip(engines, inputs)):
         chunks, _ = fx.split_records(data, fx.CHUNK_RECORDS)
-        stages = stage_breakdown(engine, chunks, n_reads)
+        if probe is None:
+            stages = stage_breakdown(engine, chunks, n_reads)
+        else:
+            with probe.splitting(n_reads):
+                stages = stage_breakdown(engine, chunks, n_reads)
         log(f"{label}: the run's engine {side + 1}, one sequential pass in "
             f"chunks of {fx.CHUNK_RECORDS} reads, host ns/read by stage "
             f"{ {k: round(v, 1) for k, v in stages.items()} }")
+    for key, value in saved_env.items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
     log(f"{label}: median {rps:.1f} reads/s through main over "
         f"{TIMED_PASSES} runs")
     STARTUP_MS[label] = started["first"] * 1e3
@@ -1940,7 +1998,7 @@ def shard_phase(data, want_out, want_report, pairs, want8_report, clock_hz,
              "-o", o1, "-p", o2, p1, p2],
             subprocess_env(CUTADAPT_TPU_TORCH_BATCH="require",
                            CUTADAPT_TPU_TORCH_DEVICE_STATS="1"))
-        want8 = HOST_FILES.pop("paired")
+        want8 = HOST_FILES["paired"]
         for path, name in ((o1, "out.1.fastq"), (o2, "out.2.fastq")):
             same_file(f"sharding (c) {name}", path, want8[name])
         merged = merged_pickles("sharding (c)", [
@@ -2072,6 +2130,304 @@ def shard_phase(data, want_out, want_report, pairs, want8_report, clock_hz,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return result
+
+
+# phase 16: the engine's dispatch modes (the shared upload, the device-side
+# prefilter)
+THREE_ADAPTERS = {"TruSeq": "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA",
+                  "Nextera": "CTGTCTCTTATACACATCT",
+                  "small RNA": "TGGAATTCTCGGGTGCCAAGG"}
+THREE_ADAPTER_ARGS = ["-e", "0.1", "-O", "3"] + [
+    x for ad in THREE_ADAPTERS.values() for x in ("-a", ad)]
+N_THREE_ADAPTER_READS = 262144
+THREE_ADAPTER_SEED = 16
+# submit's parts as tools/profile_batch_torch.py splits them
+SPLIT_PARTS = ("kmer_prefilter", "windows_clean", "pad_encode", "upload",
+               "launch")
+
+
+class DispatchProbe:
+    """Phase 16's view of one configuration's counted run through main
+    (``counting``) and of each engine's sequential pass (``splitting``).
+    The counted run: the transfer counters (set to 0 just before it), the
+    uploads (``upload_batch``) and the launches on each, the candidates
+    of each engine's dispatches (``_candidates``) and the rows of the
+    per-task host tails (``_lanes``), which XFER does not count; the
+    engine's warm-up apart. The pass: submit's host time split as
+    tools/profile_batch_torch.py splits it."""
+
+    def __init__(self):
+        # per thread: ("upload", ptr, rows) / ("launch", ptr, task)
+        self.events = {}
+        self.candidates = {}  # id(engine) -> windows dispatched
+        self.host_tail = 0
+        self.xfer = None
+        self.splits = []  # per engine: ns/read by part
+
+    def counting(self, times):
+        import contextlib
+
+        import cutadapt_tpu_torch.batch_pipeline as bp
+
+        probe = self
+        engine = bp.BatchPipelineEngine
+
+        def warming():
+            return times["device_ready"] is None
+
+        @contextlib.contextmanager
+        def window():
+            saved = (bp.upload_batch, bp.locate_packed, engine._candidates,
+                     engine._lanes)
+            real_upload, real_locate, real_cand, real_lanes = saved
+
+            def upload(enc, lengths, device):
+                out = real_upload(enc, lengths, device)
+                if not warming():
+                    probe.note("upload", out[0].data_ptr(), enc.shape[0])
+                return out
+
+            def locate(enc, lengths, tables, pack2, wide=False):
+                if not warming():
+                    probe.note("launch", enc.data_ptr(),
+                               tables.spec.reference)
+                return real_locate(enc, lengths, tables, pack2, wide=wide)
+
+            def candidates(eng, *args):
+                sel = real_cand(eng, *args)
+                probe.candidates[id(eng)] = (
+                    probe.candidates.get(id(eng), 0) + len(sel))
+                return sel
+
+            def lanes(eng, *args, **kwargs):
+                out = real_lanes(eng, *args, **kwargs)
+                probe.host_tail += out[2]
+                return out
+
+            bp.upload_batch, bp.locate_packed = upload, locate
+            engine._candidates, engine._lanes = candidates, lanes
+            bp.reset_xfer_counters()
+            try:
+                yield
+            finally:
+                probe.xfer = bp.xfer_counters()
+                (bp.upload_batch, bp.locate_packed, engine._candidates,
+                 engine._lanes) = saved
+
+        return window()
+
+    def splitting(self, n_reads):
+        import contextlib
+
+        sys.path.insert(0, os.path.join(HERE, "tools"))
+        try:
+            from profile_batch_torch import Split
+        finally:
+            sys.path.remove(os.path.join(HERE, "tools"))
+
+        @contextlib.contextmanager
+        def window():
+            with Split() as split:
+                yield
+            self.splits.append({k: v / n_reads * 1e9
+                                for k, v in split.seconds.items()})
+
+        return window()
+
+    def note(self, *event):
+        self.events.setdefault(threading.get_ident(), []).append(event)
+
+    def uploads(self):
+        """[(rows, [task of each launch on the upload])]: a thread's
+        launches belong to its last upload."""
+        out = []
+        for events in self.events.values():
+            ups = []
+            for kind, ptr, what in events:
+                if kind == "upload":
+                    ups.append((ptr, what, []))
+                elif not ups or ups[-1][0] != ptr:
+                    fail(f"a launch on a tensor that is not the last "
+                         f"upload's ({len(ups)} uploads so far)")
+                else:
+                    ups[-1][2].append(what)
+            out += [(rows, tasks) for _, rows, tasks in ups]
+        return out
+
+
+def dispatch_cell(label, args, inputs, task_of, tasks, lanes, host, env,
+                  clock_hz, sms, keep=False):
+    """One configuration of phase 16 through config_phase with ``env``,
+    held to ``host``'s host path (or, with ``keep``, to its own): reads/s,
+    the counted run's transfer counters per read, launches by task and
+    lane, ms per launch shape beside its bound, submit's host ns/read
+    split, the idle share. A kernel variant launched in the counted run
+    that its warm-up did not launch fails the phase (a launch of another
+    batch size or row width needs no compile)."""
+    probe = DispatchProbe()
+    rec, launches, rps, wall, _ = config_phase(
+        label, args, inputs, task_of, tasks, lanes=lanes, keep=keep,
+        host=host, env=env, probe=probe)
+    n = inputs[0].count(b"\n") // 4
+    late = rec.variants - rec.warm_variants
+    if late:
+        fail(f"{label}: kernel variants first launched after the warm-up: "
+             f"{sorted(late)}")
+    device_ms, per_lane = 0.0, {}
+    for pack2 in (True, False, None):
+        if not rec.launches(pack2):
+            continue
+        nums = kernel_numbers(rec, pack2, clock_hz, sms)
+        log(f"{label}: {lane_label(pack2)} kernel {shape_line(nums)}")
+        if nums["max_abs_err"] != 0:
+            fail(f"{label}: the kernel differs from the plain version")
+        device_ms += nums["run_kernel_ms"]
+        per_lane[lane_name(pack2)] = dict(
+            launches=launches[lane_name(pack2)],
+            warmup_launches=rec.warmup[lane_name(pack2)],
+            by_task={t: rec.launches(pack2, t) for t in tasks},
+            run_kernel_ms=nums["run_kernel_ms"],
+            per_shape=[{key: d[key] for key in PER_SHAPE_KEYS}
+                       for d in nums["per_shape"]])
+    uploads = probe.uploads()
+    split = [{part: sp[part] for part in SPLIT_PARTS} for sp in probe.splits]
+    cell = dict(
+        reads_per_sec=rps, wall_s=wall, env=env,
+        xfer_per_read={k: v / n for k, v in probe.xfer.items()},
+        xfer=probe.xfer, host_tail_rows=probe.host_tail,
+        candidates_per_engine=list(probe.candidates.values()),
+        uploads=len(uploads), upload_rows=sum(r for r, _ in uploads),
+        launches_per_upload=sorted({len(t) for _, t in uploads}),
+        lanes=per_lane, submit_split_ns_per_read=split,
+        device_ms=device_ms, idle_share=1 - device_ms / 1e3 / wall,
+        startup_ms=STARTUP_MS[label])
+    log(f"{label}: {rps:.1f} reads/s through main; per read H2D "
+        f"{cell['xfer_per_read']['h2d_bytes']:.4f} B, D2H "
+        f"{cell['xfer_per_read']['d2h_bytes']:.4f} B, candidates "
+        f"{cell['xfer_per_read']['candidates']:.6f}, DP rows "
+        f"{cell['xfer_per_read']['dp_rows']:.6f} (host-tail rows "
+        f"{probe.host_tail}); {len(uploads)} uploads of "
+        f"{cell['upload_rows']} rows, launches per upload "
+        f"{cell['launches_per_upload']}; submit ns/read by part "
+        + "; ".join(f"engine {i + 1} "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in sp.items())
+                    for i, sp in enumerate(split))
+        + f"; device {device_ms:.4f} ms against a median wall of "
+        f"{wall:.3f} s: idle share {cell['idle_share']:.6f}")
+    return cell, uploads
+
+
+def dispatch_modes_phase(flagship, flag_out, flag_report, pairs, clock_hz,
+                         sms) -> dict:
+    """Phase 16: (a) three Illumina adapters with the shared upload on
+    and off, (b) the device-side prefilter on and off over the flagship
+    file, phase 8's paired files and (a)'s file (with the shared upload
+    on and off there too)."""
+    import torch_fixtures as fx
+
+    name_of = {seq: name for name, seq in THREE_ADAPTERS.items()}
+    t0 = time.perf_counter()
+    three = fx.make_reads(N_THREE_ADAPTER_READS, THREE_ADAPTER_SEED,
+                          list(THREE_ADAPTERS.values()))
+    log(f"dispatch modes: {N_THREE_ADAPTER_READS} reads of 40-100 bp, 30% "
+        f"with one of {list(THREE_ADAPTERS)}, generated "
+        f"({time.perf_counter() - t0:.1f} s)")
+    HOST_FILES["flagship"] = {"out.1.fastq": flag_out}
+    # config_phase's runs number their unnamed adapter 1; phase 5's runs
+    # counted on
+    HOST_REPORTS["flagship"] = json.loads(json.dumps(flag_report))
+    for adapter in HOST_REPORTS["flagship"]["adapters_read1"]:
+        adapter["name"] = "1"
+    cells = {}
+
+    def cell(key, label, args, inputs, task_of, tasks, lanes, host, shared,
+             prefilter):
+        env = {"CUTADAPT_TPU_TORCH_SHARED_UPLOAD": shared,
+               "CUTADAPT_TPU_TORCH_DEVICE_PREFILTER": prefilter}
+        cells[key], uploads = dispatch_cell(
+            label, args, inputs, task_of, tasks, lanes, host, env, clock_hz,
+            sms, keep=host is None)
+        return uploads
+
+    three_task = lambda tables: name_of[tables.spec.reference]  # noqa: E731
+    three_cell = (THREE_ADAPTER_ARGS, [three], three_task,
+                  list(THREE_ADAPTERS), (True,))
+    # (a) the shared upload on and off, the host prefilter
+    ups = cell("three_shared", "three adapters, shared upload",
+               *three_cell, None, "1", "0")
+    host3 = "three adapters, shared upload"
+    for rows, launched in ups:
+        if sorted(launched) != sorted(THREE_ADAPTERS.values()):
+            fail(f"three adapters, shared upload: an upload of {rows} rows "
+                 f"launched {len(launched)} kernels, not one per adapter")
+    shared = cells["three_shared"]
+    if 3 * shared["upload_rows"] != shared["xfer"]["dp_rows"]:
+        fail(f"three adapters, shared upload: {shared['upload_rows']} "
+             f"uploaded rows for {shared['xfer']['dp_rows']} DP rows")
+    ups = cell("three_per_task", "three adapters, per task", *three_cell,
+               host3, "0", "0")
+    if any(len(launched) != 1 for _, launched in ups):
+        fail("three adapters, per task: an upload launched more than once")
+    # (b) the device-side prefilter: every window a candidate
+    cell("three_prefilter", "three adapters, device prefilter",
+         *three_cell, host3, "1", "1")
+    cell("three_prefilter_per_task",
+         "three adapters, device prefilter, per task", *three_cell,
+         host3, "0", "1")
+    flag = (["-a", fx.ADAPTER, "-e", "0.1", "-O", "3"], [flagship],
+            lambda tables: "3'", ["3'"], (True,), "flagship")
+    cell("flagship", "flagship", *flag, "1", "0")
+    cell("flagship_prefilter", "flagship, device prefilter", *flag, "1", "1")
+    paired = (["-a", fx.TRUSEQ_R1, "-A", fx.TRUSEQ_R2, "-q", "20", "-m",
+               "20"], list(pairs),
+              lambda tables: "R1" if tables.spec.reference == fx.TRUSEQ_R1
+              else "R2", ["R1", "R2"], (True,), "paired")
+    cell("paired", "paired", *paired, "1", "0")
+    cell("paired_prefilter", "paired, device prefilter", *paired, "1", "1")
+    # the checks of the counters
+    n_flag = flagship.count(b"\n") // 4
+    n_pairs = pairs[0].count(b"\n") // 4
+    for key, want, per_engine in (
+            ("three_prefilter", N_THREE_ADAPTER_READS,
+             [N_THREE_ADAPTER_READS]),
+            ("flagship_prefilter", n_flag, [n_flag]),
+            ("paired_prefilter", 2 * n_pairs, [n_pairs, n_pairs])):
+        c = cells[key]
+        if c["xfer"]["candidates"] + c["host_tail_rows"] != want:
+            fail(f"dispatch modes {key}: {c['xfer']['candidates']} "
+                 f"candidates (XFER) and {c['host_tail_rows']} host-tail "
+                 f"rows, not the {want} windows of the stage")
+        if c["candidates_per_engine"] != per_engine:
+            fail(f"dispatch modes {key}: windows dispatched per engine "
+                 f"{c['candidates_per_engine']}, not {per_engine}")
+    for key, c in cells.items():
+        if c["launches_per_upload"] != ([3] if key in (
+                "three_shared", "three_prefilter") else [1]):
+            fail(f"dispatch modes {key}: launches per upload "
+                 f"{c['launches_per_upload']}")
+    ratios = {}
+    for on, off in (("three_shared", "three_per_task"),
+                    ("three_prefilter", "three_prefilter_per_task")):
+        a, b = cells[on]["xfer"], cells[off]["xfer"]
+        ratios[on] = dict(
+            h2d=a["h2d_bytes"] / b["h2d_bytes"],
+            h2d_per_dp_row=(a["h2d_bytes"] / a["dp_rows"])
+            / (b["h2d_bytes"] / b["dp_rows"]),
+            candidates=a["candidates"] / b["candidates"],
+            dp_rows=a["dp_rows"] / b["dp_rows"])
+        log(f"dispatch modes: {on} against {off}: "
+            + ", ".join(f"{k} {v:.4f}x" for k, v in ratios[on].items()))
+        # one upload feeds three launches: a third of the bytes per DP row
+        if abs(ratios[on]["h2d_per_dp_row"] - 1 / 3) > 0.08:
+            fail(f"dispatch modes: H2D per DP row with the shared upload is "
+                 f"{ratios[on]['h2d_per_dp_row']:.4f}x the per-task "
+                 f"dispatch's, not about a third")
+    # every window a candidate of every task: a third of the bytes in all
+    if abs(ratios["three_prefilter"]["h2d"] - 1 / 3) > 0.02:
+        fail(f"dispatch modes: with the device prefilter, the shared upload "
+             f"ships {ratios['three_prefilter']['h2d']:.4f}x the per-task "
+             f"H2D bytes, not a third")
+    return dict(cells=cells, ratios=ratios)
 
 
 def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2):
@@ -2510,8 +2866,13 @@ def main() -> int:
     # 15. the input sharded over processes
     shard15 = shard_phase(data, main_out, cli_runs["report"], pairs, rep8,
                           clock_mhz * 1e6, sms)
-    del pairs
     phase_done("15 sharding")
+    # 16. the engine's dispatch modes: the shared upload and the device-side
+    # prefilter
+    modes16 = dispatch_modes_phase(data, main_out, cli_runs["report"], pairs,
+                                   clock_mhz * 1e6, sms)
+    del pairs
+    phase_done("16 dispatch modes")
     busy = {}
     path_lanes = {}
     for path, rec, launches, lanes, wall in (
@@ -2574,6 +2935,9 @@ def main() -> int:
     log(f"shard_process_startup_ms {procs15['startup_ms']}")
     log(f"shard_plan_pass_ms {procs15['plan_ms']}")
     log(f"cpu_count {procs15['cpu_count']}")
+    for key, c in modes16["cells"].items():
+        log(f"dispatch_{key}_reads_per_sec {c['reads_per_sec']}")
+        log(f"dispatch_{key}_idle_share {c['idle_share']}")
 
     src = "cutadapt_tpu_torch/csrc/align_locate.cu"
     kernels = []
@@ -2654,6 +3018,12 @@ def main() -> int:
                                    for d in in15["per_shard"]])
     kernels[2]["sharded"] = dict(chunk_launches_per_shard=[
         d["launches"]["byte"] for d in in15["per_shard"]])
+    # phase 16: each configuration's launches by task, time and bound per
+    # shape, per lane
+    for kernel, lane in zip(kernels, ("pack2", "pack4", "byte")):
+        kernel["dispatch_modes"] = {
+            key: c["lanes"][lane] for key, c in modes16["cells"].items()
+            if lane in c["lanes"]}
     # the scatter kernel: its path is phase 14's; the reported time, bound
     # and library call are those of one flagship chunk's flush
     top = next(d for d in scatter if d["entry"] == "flush")

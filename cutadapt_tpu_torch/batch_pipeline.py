@@ -46,9 +46,32 @@ With a device mesh (:func:`set_shard_mesh`), every DP dispatch is cut
 into the mesh's equal row slices, slice i uploaded to and launched on
 ``devices[i]``, and its results joined in shard order
 (:class:`ShardedResult`); the dispatch sizes are padded to the mesh
-(:func:`mesh_padded`), so every batch divides. Several tasks of one
-stage dispatch one by one (the reference's shared upload is not ported;
-the results are the same).
+(:func:`mesh_padded`), so every batch divides.
+
+Two dispatch modes change the work, never the results (the k-mer
+prefilter is one-sided: a read it rejects cannot align, so the DP only
+adds found=False rows for it):
+
+- the shared upload (on unless CUTADAPT_TPU_TORCH_SHARED_UPLOAD=0, and
+  off under a mesh of more than one shard, as in the reference): the
+  kernel tasks of a stage that read one encoding of the windows form a
+  group (:func:`_upload_key`). A group takes the union of its members'
+  prefilter candidates, splits lanes, encodes and uploads each dispatch
+  batch once and launches each member's kernel on the batch on the
+  device (:func:`launch_batch`). 2-bit/4-bit tasks group by
+  orientation and query-class LUT ("cls": every plain-ACGT adapter set
+  is one group), byte-lane tasks by wildcard flags and orientation.
+  One difference from the reference: with CUTADAPT_TPU_TORCH_PACK2=0
+  (or no native library) the reference puts the tasks of at most 16
+  query classes in its byte group and ships one byte per base; the
+  port's byte lane takes only specs of more than 16 classes, so these
+  tasks group by orientation and class LUT ("pack4") and share a 4-bit
+  upload, half a byte per base. Candidates and DP rows are the
+  reference's wherever the members share one class LUT (any plain-ACGT
+  set); H2D bytes are smaller.
+- the device-side prefilter (CUTADAPT_TPU_TORCH_DEVICE_PREFILTER=1,
+  off by default): no host k-mer scan; every window is a candidate and
+  the DP rejects the reads.
 
 Reference semantics: modifiers at cutadapt:src/cutadapt/modifiers.py,
 selection order of MultipleAdapters.match_to at adapters.py:1265-1286.
@@ -189,6 +212,43 @@ def _pack2_on() -> bool:
     """2-bit candidate packing (reads with N/IUPAC bytes split off to
     the 4-bit or host-scalar lane). CUTADAPT_TPU_TORCH_PACK2=0 disables."""
     return os.environ.get("CUTADAPT_TPU_TORCH_PACK2", "1") != "0"
+
+
+def _device_prefilter_on() -> bool:
+    """CUTADAPT_TPU_TORCH_DEVICE_PREFILTER=1: skip the host's k-mer scan
+    and send every window to the DP, which rejects the reads the scan
+    would have (the prefilter is one-sided, so the output is the same).
+    More wire bytes and DP rows for fewer host cycles. Off by default."""
+    return os.environ.get("CUTADAPT_TPU_TORCH_DEVICE_PREFILTER") == "1"
+
+
+def _shared_upload_on() -> bool:
+    """One upload per task group of a stage (:func:`_upload_key`):
+    CUTADAPT_TPU_TORCH_SHARED_UPLOAD=0 disables, and so does a mesh of
+    more than one shard, where each task dispatches on its own (the
+    reference's rule)."""
+    if os.environ.get("CUTADAPT_TPU_TORCH_SHARED_UPLOAD", "1") == "0":
+        return False
+    mesh = _ACTIVE_MESH
+    return mesh is None or mesh.size <= 1
+
+
+def _upload_key(task) -> Optional[tuple]:
+    """The group of the tasks that can read one encoding of the windows,
+    or None for a task that dispatches on its own (comparers, indexed
+    and linked tasks). "cls": 2-bit/4-bit tasks with the same
+    orientation and query-class LUT; "byte": byte-lane tasks with the
+    same wildcard flags and orientation (their ``query_lut`` depends on
+    nothing else); "pack4": the 4-bit tasks of a run without the 2-bit
+    lane (CUTADAPT_TPU_TORCH_PACK2=0 or no native library), keyed as
+    "cls"."""
+    if task.comparer or task.indexed or task.kind == "linked":
+        return None
+    if task.byte:
+        return ("byte", task.spec.wildcard_ref, task.spec.wildcard_query,
+                task.reverse)
+    lane = "cls" if native.AVAILABLE and _pack2_on() else "pack4"
+    return (lane, task.reverse, task.lut.tobytes())
 
 
 def _exact_wire_on(device: torch.device) -> bool:
@@ -573,41 +633,63 @@ class AdapterTask:
             qstop = lens.astype(np.int32)
         return found, qstart, qstop, errors, score
 
+    def launch(self, enc: torch.Tensor, lengths: torch.Tensor,
+               pack2: Optional[bool], wide: bool = False) -> DeviceResult:
+        """Launch the aligner in its lane (``pack2``: 2-bit, 4-bit, or
+        None the byte lane; ``wide``: the (7, B) result) on a batch that
+        is already on its device (int32 lengths, :func:`upload_batch`)."""
+        return DeviceResult(
+            locate_packed(enc, lengths, self.tables, pack2, wide=wide)
+        )
+
     def step(self, enc: torch.Tensor, lengths: torch.Tensor,
              device: torch.device, pack2: Optional[bool],
              wide: bool = False):
-        """Upload one encoded batch (host tensors, pinned when the
-        device is CUDA), launch the aligner in its lane (``pack2``: 2-bit,
-        4-bit, or None the byte lane; ``wide``: the (7, B) result), and
-        queue the result's copy back. With an active mesh that the batch
-        divides over, row slice i of the batch is uploaded to and
-        launched on ``mesh.devices[i]`` (a :class:`ShardedResult`);
-        otherwise the batch runs on ``device`` (a :class:`DeviceResult`)."""
-        mesh = active_mesh_for(len(lengths))
-        if mesh is None:
-            return self._launch(enc, lengths, device, pack2, wide)
-        per = len(lengths) // mesh.size
-        parts = []
-        for i, dev in enumerate(mesh.devices):
-            rows = slice(i * per, (i + 1) * per)
-            with on_device(dev):
-                part = self._launch(enc[rows], lengths[rows], dev, pack2,
-                                    wide)
+        """Upload one encoded batch and launch this task on it
+        (:func:`launch_batch` with one task)."""
+        return launch_batch([self], enc, lengths, device, pack2, wide)[0]
+
+
+def upload_batch(enc: torch.Tensor, lengths: torch.Tensor,
+                 device: torch.device):
+    """One dispatch batch's host tensors (pinned when the device is
+    CUDA) on ``device``: the copies are queued on the current stream,
+    and the lengths widened to the kernel's int32 there. Every launch on
+    the batch is queued on the same stream, so once the tensors are
+    freed the caching allocator hands their memory only to work queued
+    after the last of those launches."""
+    if device.type == "cuda":
+        enc = enc.to(device, non_blocking=True)
+        lengths = lengths.to(device, non_blocking=True)
+    return enc, lengths.to(torch.int32)
+
+
+def launch_batch(tasks, enc: torch.Tensor, lengths: torch.Tensor,
+                 device: torch.device, pack2: Optional[bool],
+                 wide: bool = False) -> list:
+    """Upload one encoded batch once and launch each of ``tasks`` on it;
+    one result per task. With an active mesh that the batch divides
+    over, row slice i is uploaded to and launched on ``mesh.devices[i]``
+    (a :class:`ShardedResult` per task); otherwise the batch runs on
+    ``device`` (a :class:`DeviceResult` per task)."""
+    mesh = active_mesh_for(len(lengths))
+    if mesh is None:
+        dev_enc, dev_len = upload_batch(enc, lengths, device)
+        return [t.launch(dev_enc, dev_len, pack2, wide) for t in tasks]
+    per = len(lengths) // mesh.size
+    parts = [[] for _ in tasks]
+    for i, dev in enumerate(mesh.devices):
+        rows = slice(i * per, (i + 1) * per)
+        with on_device(dev):
+            dev_enc, dev_len = upload_batch(enc[rows], lengths[rows], dev)
+            for t, shards in zip(tasks, parts):
+                part = t.launch(dev_enc, dev_len, pack2, wide)
                 # the copy back and its event on the shard's device
                 part.copy_to_host_async()
-            parts.append(part)
-            with _MESH_LOCK:
-                SHARD_LAUNCHES[i] = SHARD_LAUNCHES.get(i, 0) + 1
-        return ShardedResult(parts)
-
-    def _launch(self, enc, lengths, device, pack2, wide) -> DeviceResult:
-        if device.type == "cuda":
-            enc = enc.to(device, non_blocking=True)
-            lengths = lengths.to(device, non_blocking=True)
-        out = locate_packed(
-            enc, lengths.to(torch.int32), self.tables, pack2, wide=wide
-        )
-        return DeviceResult(out)
+                shards.append(part)
+        with _MESH_LOCK:
+            SHARD_LAUNCHES[i] = SHARD_LAUNCHES.get(i, 0) + len(tasks)
+    return [ShardedResult(shards) for shards in parts]
 
 
 class Stage:
@@ -1057,10 +1139,36 @@ class BatchPipelineEngine:
     def _dispatch_stage(self, stage, chunk, subset, win_start, win_stop,
                         width):
         """Prefilter + encode + dispatch of every task over `subset`'s
-        current windows; one _dispatch_task result per task."""
+        current windows; one _dispatch_task result per task. With the
+        shared upload (_shared_upload_on) the tasks of a group of two or
+        more (_upload_key) dispatch together (_dispatch_group), each
+        member getting the group's ('single', sel, futures); the others
+        dispatch one by one."""
+        tasks = stage.tasks
+        disp = [None] * len(tasks)
+        groups = {}
+        if _shared_upload_on():
+            for i, t in enumerate(tasks):
+                key = _upload_key(t)
+                if key is not None:
+                    groups.setdefault(key, []).append(i)
+        groups = {k: m for k, m in groups.items() if len(m) > 1}
+        if groups:
+            starts = (chunk.seq_start[subset]
+                      + win_start[subset]).astype(np.int64)
+            lens = (win_stop[subset] - win_start[subset]).astype(np.int32)
+            for key, members in groups.items():
+                sel, futures = self._dispatch_group(
+                    key, [tasks[i] for i in members], chunk, starts, lens,
+                    width,
+                )
+                for i, fut in zip(members, futures):
+                    disp[i] = ("single", sel, fut)
         return [
-            self._dispatch_task(t, chunk, subset, win_start, win_stop, width)
-            for t in stage.tasks
+            d if d is not None else self._dispatch_task(
+                t, chunk, subset, win_start, win_stop, width
+            )
+            for t, d in zip(tasks, disp)
         ]
 
     def _dispatch_task(self, task, chunk, subset, win_start, win_stop, width):
@@ -1078,18 +1186,25 @@ class BatchPipelineEngine:
         sel, futures = self._dispatch_windows(task, chunk, starts, lens, width)
         return ("single", sel, futures)
 
+    def _candidates(self, tasks, chunk, starts, lens) -> np.ndarray:
+        """Positions of the windows that pass the k-mer prefilter of any
+        of ``tasks``: every window where one of them has none
+        (MockKmerFinder, comparers, indexed tasks, native library
+        unavailable) or with the device-side prefilter."""
+        if (_device_prefilter_on() or not native.AVAILABLE
+                or any(t.pf_tables is None for t in tasks)):
+            return np.arange(len(starts))
+        mask = np.zeros(len(starts), bool)
+        for t in tasks:
+            mask |= native.kmer_prefilter(
+                chunk.buf, starts, lens, t.pf_tables, reverse=t.reverse
+            ).astype(bool)
+        return np.flatnonzero(mask)
+
     def _dispatch_windows(self, task, chunk, starts, lens, width):
         """Dispatch one task over explicit (starts, lens) window arrays;
         returns (sel positions into starts, futures)."""
-        if task.pf_tables is not None and native.AVAILABLE:
-            mask = native.kmer_prefilter(
-                chunk.buf, starts, lens, task.pf_tables, reverse=task.reverse
-            ).astype(bool)
-            sel = np.flatnonzero(mask)
-        else:
-            # no prefilter (MockKmerFinder, comparers, indexed tasks,
-            # native library unavailable): every read is a candidate
-            sel = np.arange(len(starts))
+        sel = self._candidates([task], chunk, starts, lens)
         futures = []
         if len(sel) == 0:
             return sel, futures
@@ -1112,11 +1227,58 @@ class BatchPipelineEngine:
         wide = (
             int(c_lens.max()) >= (1 << _QS_BITS) or self.want_ref_coords
         )
-        # 2-bit lane split: ACGT-class-only windows ride the 2-bit
-        # encoding; the rare N/IUPAC-containing reads take the host
-        # scalar aligner (zero wire) when few, or the 4-bit lane. A
-        # byte-lane task sends every candidate to the byte lane.
-        lanes = [(len(sel), None if task.byte else False)]
+        order, lanes, host_tail = self._lanes(task, chunk, c_starts, c_lens,
+                                              width, host_tail_ok=True)
+        sel, c_starts, c_lens = sel[order], c_starts[order], c_lens[order]
+        tail_max = _scalar_tail_max() if native.AVAILABLE else 0
+        (futures,) = self._launch_lanes([task], chunk, c_starts, c_lens,
+                                        lanes, width, wide, tail_max)
+        if host_tail:
+            base = len(sel) - host_tail
+            futures.append(
+                ("host_range", base)
+                + task.run_scalar(chunk, c_starts[base:], c_lens[base:])
+            )
+        return sel, futures
+
+    def _dispatch_group(self, key, tasks, chunk, starts, lens, width):
+        """One upload for a group of ``tasks`` (:func:`_upload_key`
+        ``key``) over (starts, lens): the union of their prefilter
+        candidates, one lane split with the first member's LUT (clean
+        windows before dirty ones, no host tail: every dirty window takes
+        the 4-bit lane), each dispatch batch encoded and uploaded once and
+        launched once per member, and the 2-bit lane's scalar tail run per
+        member (reference batch_pipeline.py:1109-1365). Returns (sel, one
+        futures list per member), positions into starts."""
+        sel = self._candidates(tasks, chunk, starts, lens)
+        if len(sel) == 0:
+            return sel, [[] for _ in tasks]
+        c_starts = starts[sel]
+        c_lens = lens[sel]
+        wide = (
+            int(c_lens.max()) >= (1 << _QS_BITS) or self.want_ref_coords
+        )
+        order, lanes, _ = self._lanes(tasks[0], chunk, c_starts, c_lens,
+                                      width, host_tail_ok=False)
+        sel, c_starts, c_lens = sel[order], c_starts[order], c_lens[order]
+        tail_max = _scalar_tail_max() if key[0] == "cls" else 0
+        return sel, self._launch_lanes(tasks, chunk, c_starts, c_lens, lanes,
+                                       width, wide, tail_max)
+
+    def _lanes(self, task, chunk, c_starts, c_lens, width, host_tail_ok):
+        """The kernel lanes of ``task``'s candidates: (order, lanes,
+        host_tail). ``lanes`` is [(count, pack2)] over the candidates
+        permuted by ``order``; the last ``host_tail`` of them go to the
+        C++ scalar aligner. A byte-lane task sends every candidate to the
+        byte lane. With the 2-bit lane on, ACGT-class-only windows ride
+        the 2-bit encoding and come first; the rare N/IUPAC-containing
+        windows take the 4-bit lane, or, when few and ``host_tail_ok``,
+        the scalar aligner (zero wire). In exact-wire mode each lane is
+        length-sorted (descending), so the batches after the first get
+        progressively narrower widths."""
+        n = len(c_starts)
+        order = np.arange(n)
+        lanes = [(n, None if task.byte else False)]
         host_tail = 0
         if not task.byte and native.AVAILABLE and _pack2_on():
             clean = native.windows_clean(
@@ -1124,37 +1286,40 @@ class BatchPipelineEngine:
                 reverse=task.reverse,
             )
             n_clean = int(clean.sum())
-            n_dirty = len(sel) - n_clean
+            n_dirty = n - n_clean
             if n_dirty == 0:
-                lanes = [(len(sel), True)]
+                lanes = [(n, True)]
             elif n_clean > 0:
                 order = np.concatenate(
                     [np.flatnonzero(clean), np.flatnonzero(~clean)]
                 )
-                sel = sel[order]
-                c_starts = c_starts[order]
-                c_lens = c_lens[order]
-                if n_dirty <= max(64, len(sel) >> 6):
+                if host_tail_ok and n_dirty <= max(64, n >> 6):
                     lanes = [(n_clean, True)]
                     host_tail = n_dirty
                 else:
                     lanes = [(n_clean, True), (n_dirty, False)]
-        exact = _exact_wire_on(self.device)
-        if exact and len(sel) > 1:
-            # length-sort each lane segment (descending) so the batches
-            # after the first get progressively narrower widths
+        if _exact_wire_on(self.device) and n > 1:
+            o_lens = c_lens[order]
             parts, seg_base = [], 0
             for count, _p2 in lanes:
                 seg = np.arange(seg_base, seg_base + count)
-                parts.append(seg[np.argsort(-c_lens[seg], kind="stable")])
+                parts.append(seg[np.argsort(-o_lens[seg], kind="stable")])
                 seg_base += count
-            if seg_base < len(sel):  # host-scalar tail, order kept
-                parts.append(np.arange(seg_base, len(sel)))
-            perm = np.concatenate(parts)
-            sel = sel[perm]
-            c_starts = c_starts[perm]
-            c_lens = c_lens[perm]
-        tail_max = _scalar_tail_max() if native.AVAILABLE else 0
+            if seg_base < n:  # host-scalar tail, order kept
+                parts.append(np.arange(seg_base, n))
+            order = order[np.concatenate(parts)]
+        return order, lanes, host_tail
+
+    def _launch_lanes(self, tasks, chunk, c_starts, c_lens, lanes, width,
+                      wide, tail_max):
+        """Encode (with the first task's LUT and orientation), upload and
+        launch the candidates lane by lane in ``_dp_sizes`` batches, each
+        batch once for all ``tasks``; a lane remainder of at most
+        ``tail_max`` rows after its full batches goes to each task's C++
+        scalar aligner instead of a padded batch. Returns one futures
+        list per task."""
+        futures = [[] for _ in tasks]
+        exact = _exact_wire_on(self.device)
         base = 0
         for count, p2 in lanes:
             dev_count = count
@@ -1175,43 +1340,39 @@ class BatchPipelineEngine:
                 take = min(size, dev_count - off)
                 if take <= 0:
                     break
+                rows = slice(base + off, base + off + take)
                 if exact:
-                    bmax = int(c_lens[base + off : base + off + take].max())
-                    b_w = _eff_width(bmax, width, p2)
+                    b_w = _eff_width(int(c_lens[rows].max()), width, p2)
                 else:
                     b_w = width
                 enc = self._encode(
-                    task, chunk, c_starts, c_lens,
-                    np.arange(base + off, base + off + take, dtype=np.int64),
+                    tasks[0], chunk, c_starts, c_lens,
+                    np.arange(rows.start, rows.stop, dtype=np.int64),
                     size, b_w, pack2=p2,
                 )
                 sub_len = self._host_tensor(_wire_lengths(
-                    c_lens[base + off : base + off + take], size, wide,
-                    width=b_w if exact else None,
+                    c_lens[rows], size, wide, width=b_w if exact else None,
                 ))
                 _xfer_add(
                     h2d=enc.numel() + sub_len.numel() * sub_len.element_size(),
-                    candidates=take, dp_rows=size,
+                    candidates=take, dp_rows=size * len(tasks),
                 )
-                fut = task.step(enc, sub_len, self.device, pack2=p2,
-                                wide=wide)
-                fut.copy_to_host_async()
-                futures.append((base + off, take, fut, wide))
+                results = launch_batch(tasks, enc, sub_len, self.device, p2,
+                                       wide)
+                for futs, fut in zip(futures, results):
+                    fut.copy_to_host_async()
+                    futs.append((rows.start, take, fut, wide))
                 off += size
             if dev_count < count:
                 s0, s1 = base + dev_count, base + count
                 _xfer_add(candidates=count - dev_count)
-                futures.append(
-                    ("host_range", s0)
-                    + task.run_scalar(chunk, c_starts[s0:s1], c_lens[s0:s1])
-                )
+                for t, futs in zip(tasks, futures):
+                    futs.append(
+                        ("host_range", s0)
+                        + t.run_scalar(chunk, c_starts[s0:s1], c_lens[s0:s1])
+                    )
             base += count
-        if host_tail:
-            futures.append(
-                ("host_range", base)
-                + task.run_scalar(chunk, c_starts[base:], c_lens[base:])
-            )
-        return sel, futures
+        return futures
 
     def _fetch_task(self, n_cand, futures):
         """One task's results over its n_cand candidates: (found,

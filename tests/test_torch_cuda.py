@@ -967,3 +967,55 @@ def test_shard_runs_on_card_equal_the_unsharded_run(card, monkeypatch,
                                       *outputs(tmp_path / "host"), *inputs]])
     assert merged.as_json() == host.as_json()
     assert full_report(merged, 0, 0.5) == full_report(host, 0, 0.5)
+
+
+@pytest.mark.cuda
+def test_shared_upload_on_card(card, monkeypatch):
+    """The TruSeq, Nextera and small-RNA 3' adapters form one group on
+    the card: each dispatch batch is uploaded once and launched once per
+    member on the uploaded tensors; the output equals the per-task
+    dispatch's on the card and the plain version's (the engine on the
+    CPU)."""
+    adapters = (fx.ADAPTER, fx.NEXTERA, "TGGAATTCTCGGGTGCCAAGG")
+    events = []
+    real_upload, real_locate = tbp.upload_batch, tbp.locate_packed
+
+    def upload(enc, lengths, device):
+        out = real_upload(enc, lengths, device)
+        events.append(("upload", out[0].data_ptr(), None))
+        return out
+
+    def locate(enc, lengths, tables, pack2, wide=False):
+        events.append(("launch", enc.data_ptr(), tables.spec.reference))
+        return real_locate(enc, lengths, tables, pack2, wide=wide)
+
+    monkeypatch.setattr(tbp, "upload_batch", upload)
+    monkeypatch.setattr(tbp, "locate_packed", locate)
+    chunks, _ = fx.split_records(
+        fx.add_ns(fx.make_reads(6000, 12, list(adapters)), 0.05), 2000)
+    outs = {}
+    for device, shared in (("cuda", "1"), ("cuda", "0"), ("cpu", "1")):
+        monkeypatch.setenv("CUTADAPT_TPU_TORCH_SHARED_UPLOAD", shared)
+        stage, _ = fx.cutter_stage(fx.PORT_MODULES,
+                                   [("back", ad) for ad in adapters])
+        engine = tbp.BatchPipelineEngine(
+            [stage], device=device, min_dp_batch=256, max_dp_batch=1024)
+        align_cuda.reset_launch_counters()
+        events.clear()
+        outs[device, shared] = [
+            out for out, _ in tbp.process_chunks_pipelined(engine, chunks)]
+        if device == "cpu":
+            continue
+        assert not any(align_cuda.PLAIN_RUNS.values())
+        ups = [i for i, e in enumerate(events) if e[0] == "upload"]
+        assert ups and sum(align_cuda.LAUNCHES.values()) == \
+            len(events) - len(ups)
+        per_upload = 3 if shared == "1" else 1
+        assert len(events) == len(ups) * (1 + per_upload)
+        for i in ups:
+            batch = events[i + 1 : i + 1 + per_upload]
+            assert all(e[0] == "launch" and e[1] == events[i][1]
+                       for e in batch)
+            if shared == "1":
+                assert sorted(e[2] for e in batch) == sorted(adapters)
+    assert outs["cuda", "1"] == outs["cuda", "0"] == outs["cpu", "1"]

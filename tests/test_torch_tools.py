@@ -7,10 +7,13 @@ device numbers come only from runs on the card (chip_smoke.py phase 15).
 
 import json
 import os
+import random
 import subprocess
 import sys
 
 import pytest
+
+import torch_fixtures as fx
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -72,3 +75,48 @@ def test_kernel_bench_takes_the_engines_lane_and_width():
     assert out["lane"] == "pack2" and out["row_bytes"] == 32
     assert len(out["passes"]) == 2
     assert all(p["rows_per_sec"] > 0 for p in out["passes"])
+
+
+def test_fuzz_parity_draws_the_dispatch_modes(monkeypatch):
+    """A seed that draws the JAX tool's DEVICE_PREFILTER=1 runs the
+    port's device-side prefilter on the engine run (and never on the
+    host run), with the SHARED_UPLOAD of the tool's second generator."""
+    import importlib.util
+
+    import cutadapt_tpu_torch.batch_pipeline as bp
+
+    spec = importlib.util.spec_from_file_location(
+        "fuzz_parity_torch", os.path.join(REPO, "tools",
+                                          "fuzz_parity_torch.py"))
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    seed = next(s for s in range(2000, 2100)
+                if fuzz.draw(s)[4]["CUTADAPT_TPU_TORCH_DEVICE_PREFILTER"]
+                == "1")
+    knobs = fuzz.draw(seed)[4]
+    # the JAX tool's draws, in its order (tools/fuzz_parity.py:158-167),
+    # leave its generator where this tool's is left
+    rng = random.Random(seed)
+    if rng.random() < 0.45:
+        rng.random()
+    rng.random()
+    for choices in (["0", "1"], ["0", "1"], ["1", "2", "3"], ["0", "1"],
+                    ["0", "0", "1"], ["", "3000", "12000"]):
+        rng.choice(choices)
+    assert fuzz.draw(seed)[0].getstate() == rng.getstate()
+    seen = []
+    real = bp._device_prefilter_on
+
+    def spy():
+        seen.append((os.environ.get("CUTADAPT_TPU_TORCH_BATCH"),
+                     os.environ.get("CUTADAPT_TPU_TORCH_SHARED_UPLOAD")))
+        return real()
+
+    monkeypatch.setattr(bp, "_device_prefilter_on", spy)
+    monkeypatch.setenv("CUTADAPT_TPU_TORCH_DEVICE", "cpu")
+    for key in fuzz.KNOBS + ("CUTADAPT_TPU_TORCH_BATCH",):
+        monkeypatch.delenv(key, raising=False)
+    with fx.one_torch_thread():
+        assert fuzz.main_fuzz(["1", str(seed), "--device", "cpu"]) == 0
+    assert seen and set(seen) == {
+        ("1", knobs["CUTADAPT_TPU_TORCH_SHARED_UPLOAD"])}

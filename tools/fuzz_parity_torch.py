@@ -13,13 +13,16 @@ failure modes. The engine run also draws the port's own knobs, all of
 which must be invisible in the results: CUTADAPT_TPU_TORCH_PACK2 (the
 2-bit or 4-bit lane), CUTADAPT_TPU_TORCH_EXACT_WIRE (batch-max row
 widths), CUTADAPT_TPU_TORCH_DEVICE_STATS (the statistics reducer),
-CUTADAPT_TPU_TORCH_CHUNK_BYTES (multi-chunk runs) and
+CUTADAPT_TPU_TORCH_DEVICE_PREFILTER (every window to the DP, no host
+k-mer scan), CUTADAPT_TPU_TORCH_CHUNK_BYTES (multi-chunk runs),
 CUTADAPT_TPU_TORCH_DEVICES (a mesh of N shards; on the CPU, N shards of
-the CPU; on CUDA the first N cards). The JAX tool's WORKERS and
-DEVICE_PREFILTER have no counterpart in the port (its pooled drive was
-removed; it has no device-side prefilter), so their draws are made and
-unused, and a seed gives both tools the same inputs and arguments.
---shard is never drawn: sharding has tests of its own.
+the CPU; on CUDA the first N cards) and CUTADAPT_TPU_TORCH_SHARED_UPLOAD
+(one upload per task group of a stage, or one per task). The JAX tool's
+WORKERS has no counterpart in the port (its pooled drive was removed):
+that draw picks the shard count. SHARED_UPLOAD, which the JAX tool does
+not draw, comes from a second generator seeded from the iteration's
+seed, so a seed gives both tools the same inputs and arguments. --shard
+is never drawn: sharding has tests of its own.
 
 On CUDA (the default) an engine run that reached the plain aligner
 version, which only CPU tensors take, counts as a mismatch.
@@ -52,7 +55,8 @@ AW = "ANGATNACGGA"
 # the engine run's knobs, unset for the host run
 KNOBS = ("CUTADAPT_TPU_TORCH_PACK2", "CUTADAPT_TPU_TORCH_DEVICE_STATS",
          "CUTADAPT_TPU_TORCH_EXACT_WIRE", "CUTADAPT_TPU_TORCH_CHUNK_BYTES",
-         "CUTADAPT_TPU_TORCH_DEVICES")
+         "CUTADAPT_TPU_TORCH_DEVICES", "CUTADAPT_TPU_TORCH_DEVICE_PREFILTER",
+         "CUTADAPT_TPU_TORCH_SHARED_UPLOAD")
 
 _COMP = {"A": "T", "C": "G", "G": "C", "T": "A", "N": "N"}
 
@@ -236,6 +240,30 @@ def run_once(tmp, env, knobs, args, inputs, paired, interleaved, fasta_in):
     return ("ok", collect_outputs(out_dir), json.dumps(r, sort_keys=True))
 
 
+def draw(seed: int):
+    """An iteration's draws in the JAX tool's order: (the generator, left
+    where the inputs are drawn, paired, interleaved, FASTA input, the
+    engine run's knobs)."""
+    rng = random.Random(seed)
+    paired = rng.random() < 0.45
+    interleaved = paired and rng.random() < 0.3
+    fasta_in = rng.random() < 0.2
+    knobs = {"CUTADAPT_TPU_TORCH_PACK2": rng.choice(["0", "1"]),
+             "CUTADAPT_TPU_TORCH_DEVICE_STATS": rng.choice(["0", "1"])}
+    # the JAX tool's WORKERS draw: the shard count here
+    knobs["CUTADAPT_TPU_TORCH_DEVICES"] = rng.choice(["1", "2", "3"])
+    knobs["CUTADAPT_TPU_TORCH_EXACT_WIRE"] = rng.choice(["0", "1"])
+    knobs["CUTADAPT_TPU_TORCH_DEVICE_PREFILTER"] = rng.choice(["0", "0", "1"])
+    # small chunk sizes force multi-chunk engine runs; chunking must be
+    # invisible in the results
+    knobs["CUTADAPT_TPU_TORCH_CHUNK_BYTES"] = rng.choice(["", "3000", "12000"])
+    # not a draw of the JAX tool: its own generator keeps the main one's
+    # sequence
+    knobs["CUTADAPT_TPU_TORCH_SHARED_UPLOAD"] = random.Random(
+        f"{seed} shared upload").choice(["0", "1"])
+    return rng, paired, interleaved, fasta_in, knobs
+
+
 def main_fuzz(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("iterations", type=int, nargs="?", default=60)
@@ -253,20 +281,7 @@ def main_fuzz(argv=None) -> int:
     for it in range(opts.iterations):
         seed = (opts.seed_base + it if opts.seed_base is not None
                 else 1000 + it)
-        rng = random.Random(seed)
-        paired = rng.random() < 0.45
-        interleaved = paired and rng.random() < 0.3
-        fasta_in = rng.random() < 0.2
-        knobs = {"CUTADAPT_TPU_TORCH_PACK2": rng.choice(["0", "1"]),
-                 "CUTADAPT_TPU_TORCH_DEVICE_STATS": rng.choice(["0", "1"])}
-        # the JAX tool's WORKERS draw: the shard count here
-        knobs["CUTADAPT_TPU_TORCH_DEVICES"] = rng.choice(["1", "2", "3"])
-        knobs["CUTADAPT_TPU_TORCH_EXACT_WIRE"] = rng.choice(["0", "1"])
-        rng.choice(["0", "0", "1"])  # the JAX tool's DEVICE_PREFILTER draw
-        # small chunk sizes force multi-chunk engine runs; chunking must
-        # be invisible in the results
-        knobs["CUTADAPT_TPU_TORCH_CHUNK_BYTES"] = rng.choice(
-            ["", "3000", "12000"])
+        rng, paired, interleaved, fasta_in, knobs = draw(seed)
         with tempfile.TemporaryDirectory() as tmp:
             inputs = make_input(tmp, rng, paired, fasta_in, interleaved)
             args = random_args(rng, paired)

@@ -12,8 +12,9 @@ warm pass. Submit is split further by wrapping what it calls:
 - ``pinned allocations``: the encode buffers and length tensors put in
   page-locked memory (``BatchPipelineEngine._encode`` less its
   ``pad_encode``, and ``_host_tensor``);
-- ``upload``: ``AdapterTask.step`` less the kernel wrapper, the
-  host-to-device copies it queues;
+- ``upload``: ``launch_batch`` less the kernel wrapper, the
+  host-to-device copies it queues (once per dispatch batch, for every
+  task of a shared-upload group);
 - ``launch``: the kernel wrapper ``locate_packed`` (argument checks,
   ctypes call);
 - ``copy back``: the result's pinned host buffer, its queued copy to
@@ -80,13 +81,13 @@ class Split:
         setattr(owner, name, timed)
 
     def __enter__(self):
-        engine, task = bp.BatchPipelineEngine, bp.AdapterTask
+        engine = bp.BatchPipelineEngine
         for name in ("kmer_prefilter", "windows_clean", "pad_encode"):
             self._wrap(native, name, name)
         self._wrap(engine, "_encode", "pinned allocations", ("pad_encode",))
         self._wrap(engine, "_host_tensor", "pinned allocations")
         self._wrap(bp, "locate_packed", "launch")
-        self._wrap(task, "step", "upload", ("launch", "copy back"))
+        self._wrap(bp, "launch_batch", "upload", ("launch", "copy back"))
         self._wrap(bp.DeviceResult, "copy_to_host_async", "copy back")
         self._wrap(bp.ShardedResult, "copy_to_host_async", "copy back",
                    ("copy back",))
