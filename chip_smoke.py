@@ -170,6 +170,17 @@ Phases, each of which must pass:
    candidates plus the per-task host tail's rows, which XFER does not
    count: the read count, per side the pair count). A kernel variant
    launched in a counted run and not in its warm-up fails the phase.
+17. the port's benchmark programs, each a process at its default size
+   (bench_torch.py, the counterpart of bench.py: 1,000,000 flagship
+   reads; bench_configs_torch.py, of bench_configs.py: 200,000 reads
+   per configuration), together within 300 s: each must exit 0 and
+   name this card; bench_torch.py's kernel_parity (tools/
+   verify_cuda_torch.py) must be "ok" and its 2-bit kernel must run at
+   no less than its bound (x_bound >= 1 / 1.05); bench_configs_torch.py
+   must report parity on all five configurations. Both JSON lines are
+   logged; the 2-bit kernel's entry gets bench_torch.py's kernel
+   section and the launches of its counted pipelined pass under "bench"
+   (that process's own counters).
 
 Launch counters are set to 0 just before each counted window (the main
 path's warm pass, the dirty lane, each counted CLI run, the golden
@@ -189,9 +200,8 @@ under "byte_lane"; the launches per shard of phase 14's mesh under
 "shard_launches" and by configuration under "mesh"; the scatter kernel's
 entry with phase 14's numbers; each kernel's launches per shard of
 phase 15 (a) under "sharded"; phase 16's configurations under
-"dispatch_modes"), the seconds of each phase, and as the
-last line
-{"ok": true, "device": {...}}.
+"dispatch_modes"; phase 17's under "bench"), the seconds of each phase,
+and as the last line {"ok": true, "device": {...}}.
 
 The workload and the parity matrix come from tests/torch_fixtures.py.
 Run from the repository root: python3 chip_smoke.py
@@ -238,29 +248,6 @@ LONG_CHUNK_BYTES = 1 << 30
 N_UMI_READS = 262144
 N_BARCODED_PAIRS = 262144
 TIMED_PASSES = 3
-# HBM3 rate of the H100 SXM (NVIDIA data sheet)
-PEAK_BYTES_PER_S = 3.35e12
-# int32 lanes per SM (the issue rate of 32-bit integer instructions)
-INT32_LANES_PER_SM = 64
-# Integer ALU operations the aligner needs, counted from the inner loops
-# of csrc/align_locate.cu. Loads and stores of the DP column are not
-# counted: they run on the load/store pipe, and a column held in
-# registers would need none. Per active column, row 0: its cost, score
-# and origin adds and the band test (4). Per cell of rows 1..m: the
-# class match bit (2: shift, and), the diagonal leaf (3: cost add, score
-# select and add), the deletion candidate (4: select, add and
-# saturating min on the cost, add on the score), its lexicographic
-# key_min against the leaf (10: 5 compares, 5 selects) and the band and
-# band-edge updates (5: 3 compares, 2 selects). A cell whose query class
-# does not match the row also takes the insertion leaf (2 adds) and its
-# key_min against the diagonal, whose classes are fixed (1 compare,
-# 5 selects); a matching cell takes the diagonal outright.
-OPS_PER_COLUMN = 4
-OPS_PER_CELL = 24
-OPS_PER_MISMATCH = 8
-# the byte lane tests a match as one compare of the query code with the
-# row's reference code, where the packed lanes shift and mask
-OPS_PER_CELL_BYTE = OPS_PER_CELL - 1
 # phase 12: the byte lane through main (an adapter of 17 query classes)
 N_BYTE_LANE_READS = 131072
 # reads of the byte lane's wide parity on 16,400-20,000 bp
@@ -1178,6 +1165,7 @@ def scatter_phase():
     import torch
 
     from cutadapt_tpu_torch.ops import stats_cuda as sc
+    from cutadapt_tpu_torch.ops.align_cuda import PEAK_BYTES_PER_S
 
     rng = np.random.RandomState(14)
     dev = torch.device("cuda", 0)
@@ -2430,53 +2418,69 @@ def dispatch_modes_phase(flagship, flag_out, flag_report, pairs, clock_hz,
     return dict(cells=cells, ratios=ratios)
 
 
-def dp_work(enc: np.ndarray, lengths: np.ndarray, tables, pack2):
-    """The DP work this batch's data needs: each read runs its active
-    columns (min_n, min(max_n, width)] over rows 0..m. Returns (active
-    columns, cells of rows 1..m, those of them whose query class (in the
-    byte lane: code) matches the row, integer operations)."""
-    spec = tables.spec
-    m, k = tables.m, tables.k
-    n = lengths.astype(np.int64)
-    from cutadapt_tpu_torch.ops.align_cuda import LANE_BITS
-
-    bits = LANE_BITS[pack2]
-    per_byte = 8 // bits
-    cls = np.stack([(enc >> (t * bits)) & ((1 << bits) - 1)
-                    for t in range(per_byte)], axis=2).reshape(len(enc), -1)
-    max_n = n if spec.start_in_query else np.minimum(n, m + k)
-    min_n = np.zeros_like(n) if spec.stop_in_query else np.maximum(0, n - m - k)
-    j_end = np.minimum(max_n, cls.shape[1])
-    q = np.arange(cls.shape[1])[None, :]
-    active = (q >= min_n[:, None]) & (q < j_end[:, None])
-    rows = tables.table[:m].astype(np.int64)
-    if pack2 is None:  # the byte lane: rows hold the reference codes
-        n_eq = np.bincount(rows, minlength=256)
-        per_cell = OPS_PER_CELL_BYTE
-    else:
-        n_eq = np.array([int(((rows >> c) & 1).sum()) for c in range(16)])
-        per_cell = OPS_PER_CELL
-    cols = int(active.sum())
-    cells = cols * m
-    eq_cells = int(n_eq[cls[active]].sum())
-    ops = (cols * OPS_PER_COLUMN + cells * per_cell
-           + (cells - eq_cells) * OPS_PER_MISMATCH)
-    return cols, cells, eq_cells, ops
+# phase 17: the port's benchmark programs, each a process at its default
+# size; together they have BENCH_SECONDS, bench_torch.py at most
+# BENCH_TORCH_SECONDS of it
+BENCH_SECONDS = 300
+BENCH_TORCH_SECONDS = 180
 
 
-def bound_of(enc, lens, tables, pack2, clock_hz, sms, wide=False):
-    """The least time the card needs for one launch on these inputs: the
-    larger of the integer operations the data needs (dp_work) at the
-    card's int32 rate and the bytes moved (inputs read once, the result,
-    2 or 7 int32 per read, written once) at its memory rate. Returns (ms,
-    "operations" or "bytes", dp_work's tuple)."""
-    work = dp_work(enc.cpu().numpy(), lens.cpu().numpy(), tables, pack2)
-    ops_s = work[3] / (sms * INT32_LANES_PER_SM * clock_hz)
-    nbytes = enc.numel() + 4 * enc.shape[0] + 4 * len(tables.table) \
-        + 4 * (7 if wide else 2) * enc.shape[0]
-    bytes_s = nbytes / PEAK_BYTES_PER_S
-    return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s >= bytes_s else "bytes", work)
+def last_json(label, text) -> dict:
+    """The JSON object on the last line of a program's output."""
+    lines = text.strip().splitlines()
+    try:
+        return json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"{label}: its last line is not a JSON object:\n{text[-2000:]}")
+
+
+def bench_phase() -> dict:
+    """17: bench_torch.py at its default 1,000,000 reads, then
+    bench_configs_torch.py at its default 200,000, each a process of its
+    own. Each must exit 0 within its time limit, name this card, and
+    bench_torch.py report kernel_parity "ok" and its 2-bit kernel at no
+    less than its bound (x_bound >= 1 / 1.05: a kernel faster than its
+    bound means the count is wrong); bench_configs_torch.py must report
+    parity on every configuration."""
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    env = subprocess_env()
+    out, err, dt = run_process(
+        "bench_torch.py", [sys.executable, os.path.join(HERE, "bench_torch.py")],
+        env, timeout=BENCH_TORCH_SECONDS)
+    bench = last_json("bench_torch.py", out)
+    log(f"bench_torch.py ({dt:.1f} s): " + json.dumps(bench))
+    for line in err.splitlines():
+        if line.startswith(("pass ", "sequential", "device kernel",
+                            "one pipelined pass", "torch.profiler",
+                            "CLI surface", "-j ")):
+            log(f"  bench_torch: {line}")
+    if bench.get("metric") != "reads_per_sec_se_3p_adapter_trim" or not (
+            bench.get("value", 0) > 0):
+        fail(f"bench_torch.py: no reads/s in its line: {bench}")
+    if bench["kernel_parity"] != "ok":
+        fail(f"bench_torch.py: kernel_parity {bench['kernel_parity']}")
+    if bench["device"] != name:
+        fail(f"bench_torch.py ran on {bench['device']!r}, not {name!r}")
+    if not bench["x_bound"] >= 1 / 1.05:
+        fail(f"bench_torch.py: the kernel ran at {bench['x_bound']} x its "
+             f"bound: the bound's count is wrong")
+    out, err, dt2 = run_process(
+        "bench_configs_torch.py",
+        [sys.executable, os.path.join(HERE, "bench_configs_torch.py")],
+        env, timeout=max(1, BENCH_SECONDS - dt))
+    configs = last_json("bench_configs_torch.py", out)
+    for line in out.strip().splitlines()[:-1]:
+        log(f"  bench_configs_torch: {line}")
+    log(f"bench_configs_torch.py ({dt2:.1f} s): " + json.dumps(configs))
+    if configs["device"] != name:
+        fail(f"bench_configs_torch.py ran on {configs['device']!r}, not "
+             f"{name!r}")
+    if len(configs["configs"]) != 5 or not all(
+            c["parity"] for c in configs["configs"]):
+        fail(f"bench_configs_torch.py: parity failed: {configs['configs']}")
+    return dict(bench=bench, configs=configs, seconds=[dt, dt2])
 
 
 def kernel_numbers(rec, pack2, clock_hz, sms):
@@ -2516,8 +2520,9 @@ def kernel_numbers(rec, pack2, clock_hz, sms):
         if diff is not None:
             fail(f"kernel vs plain at the path's shape {key}: {diff}")
         ms = cuda_ms(call, 20 if key[2] < 1024 else 5, graph=True)
-        bound_ms, bound_by, work = bound_of(enc, lens, tables, pack2,
-                                            clock_hz, sms, wide)
+        bound_ms, bound_by, work = align_cuda.bound_of(
+            enc.cpu().numpy(), lens.cpu().numpy(), tables, pack2, clock_hz,
+            sms, wide)
         per_shape.append(dict(
             task=key[3], shape=[key[1], key[2]], wide=wide,
             plain_ms=start.elapsed_time(end),
@@ -2873,6 +2878,9 @@ def main() -> int:
                                    clock_mhz * 1e6, sms)
     del pairs
     phase_done("16 dispatch modes")
+    # 17. the port's benchmark programs at their default sizes
+    bench17 = bench_phase()
+    phase_done("17 bench")
     busy = {}
     path_lanes = {}
     for path, rec, launches, lanes, wall in (
@@ -2938,6 +2946,14 @@ def main() -> int:
     for key, c in modes16["cells"].items():
         log(f"dispatch_{key}_reads_per_sec {c['reads_per_sec']}")
         log(f"dispatch_{key}_idle_share {c['idle_share']}")
+    bench = bench17["bench"]
+    log(f"bench_reads_per_sec {bench['value']}")
+    log(f"bench_cli_reads_per_sec {bench['cli_reads_per_sec']}")
+    log(f"bench_idle_share {bench['idle_share']}")
+    log(f"bench_x_bound {bench['x_bound']}")
+    for c in bench17["configs"]["configs"]:
+        log(f"bench_configs {c['name']}: host {c['host']} engine "
+            f"{c['engine']} {c['unit']}")
 
     src = "cutadapt_tpu_torch/csrc/align_locate.cu"
     kernels = []
@@ -3010,6 +3026,16 @@ def main() -> int:
         warmup_launches_per_shard=[d["warmup_launches"]["pack2"]
                                    for d in in15["per_shard"]],
         max_abs_err=in15["max_abs_err"], per_shape=in15["per_shape"])
+    # phase 17: bench_torch.py's kernel section and its counted pipelined
+    # pass (its own process's counters)
+    dk = bench["device_kernel"]
+    kernels[0]["bench"] = dict(
+        shape=[dk["rows"], dk["row_bytes"]], ms=dk["ms"],
+        bound_ms=dk["bound_ms"], bound_by=dk["bound_by"],
+        x_bound=dk["x_bound"], launches=dk["launches"],
+        pipelined_pass_launches=bench["pipelined_pass"]["launches"]["pack2"],
+        per_shape=[d for d in bench["pipelined_pass"]["per_shape"]
+                   if d["lane"] == "pack2"])
     kernels[1]["sharded"] = dict(
         chunk_launches_per_shard=[d["launches"]["pack4"]
                                   - d["warmup_launches"]["pack4"]

@@ -51,6 +51,14 @@ launches the kernel (or raises), a CPU tensor runs
 The kernel library is compiled with nvcc on first use into
 ``csrc/build/`` beside the source, keyed by the hash of the source and
 flags, and loaded with ctypes.
+
+For the measurement programs: :func:`encode_rows` packs read bytes as a
+lane takes them, :func:`scalar_locate` runs the C++ scalar aligner over
+a batch (the sequential form of the same contract),
+:func:`first_difference` compares two unpacked results, and
+:func:`bound_of` gives the least time a card of a given SM count and
+clock needs for a launch, from the work :func:`dp_work` counts in the
+batch's data (chip_smoke.py and bench_torch.py report time / bound).
 """
 
 import ctypes
@@ -80,6 +88,7 @@ from .align_batch import (
     min_length_table,
     n_counts,
     query_class_info,
+    query_lut,
 )
 
 _QS_MASK = (1 << 14) - 1
@@ -732,3 +741,141 @@ def locate_reference(enc: torch.Tensor, lengths: torch.Tensor,
           | (best_found.to(i64) << _FOUND_SHIFT))
     r1 = best_cost.to(i64) | ((best_score.to(i64) + _SCORE_BIAS) << 16)
     return _to_int32_bits(torch.cat([r0, r1], dim=0))
+
+
+# --- reference forms for the measurement programs and tests -----------------
+
+
+def encode_rows(spec: AlignerSpec, raw: np.ndarray,
+                pack2: Optional[bool]) -> np.ndarray:
+    """Row-padded read bytes as the aligner's lane takes them: four 2-bit
+    class ids per byte (pack2 True), two 4-bit ones (False), or one
+    ``query_lut`` code per byte (None, the byte lane)."""
+    if pack2 is None:
+        return query_lut(spec)[raw]
+    cls = query_class_info(spec)[0][raw]
+    if pack2:
+        enc = (cls[:, 0::4] | (cls[:, 1::4] << 2) | (cls[:, 2::4] << 4)
+               | (cls[:, 3::4] << 6))
+    else:
+        enc = cls[:, 0::2] | (cls[:, 1::2] << 4)
+    return enc.astype(np.uint8)
+
+
+def scalar_locate(spec: AlignerSpec, raw: np.ndarray, lens: np.ndarray):
+    """The C++ scalar aligner (``native.ScalarAligner``) over each read of
+    ``raw`` (B, L) bytes, ``lens`` (B,): (found, qstart, qstop, errors,
+    score), the sequential form of the kernel's contract."""
+    from .. import native
+
+    aligner = native.ScalarAligner(
+        encode_reference(spec).tobytes(), n_counts(spec),
+        effective_length(spec), spec.max_error_rate, spec.flags,
+        not (spec.wildcard_ref or spec.wildcard_query), spec.wildcard_ref,
+        spec.indel_cost, spec.min_overlap,
+    )
+    lut = query_lut(spec)
+    B = len(lens)
+    out = [np.zeros(B, bool)] + [np.zeros(B, np.int32) for _ in range(4)]
+    for i in range(B):
+        r = aligner.locate(lut[raw[i, : lens[i]]].tobytes())
+        if r is not None:
+            out[0][i] = True
+            _, _, out[1][i], out[2][i], out[4][i], out[3][i] = r
+    return tuple(out)
+
+
+def first_difference(got, want) -> Optional[str]:
+    """None if two unpacked results (found, qstart, qstop, errors,
+    score[, ref_start, ref_stop]) agree under the comparison rule (found
+    everywhere, the other fields where found), else the first field that
+    differs."""
+    if len(got) != len(want):
+        return f"fields ({len(got)} against {len(want)})"
+    if not np.array_equal(got[0], want[0]):
+        return f"found ({int((got[0] != want[0]).sum())} reads)"
+    f = want[0]
+    for name, g, w in zip(("qstart", "qstop", "errors", "score",
+                           "ref_start", "ref_stop"), got[1:], want[1:]):
+        if not np.array_equal(g[f], w[f]):
+            return f"{name} ({int((g[f] != w[f]).sum())} reads)"
+    return None
+
+
+# --- the kernel's bound ------------------------------------------------------
+
+# HBM3 rate of the H100 SXM (NVIDIA data sheet)
+PEAK_BYTES_PER_S = 3.35e12
+# int32 lanes per SM (the issue rate of 32-bit integer instructions)
+INT32_LANES_PER_SM = 64
+# Integer ALU operations the aligner needs, counted from the inner loops
+# of csrc/align_locate.cu. Loads and stores of the DP column are not
+# counted: they run on the load/store pipe, and a column held in
+# registers would need none. Per active column, row 0: its cost, score
+# and origin adds and the band test (4). Per cell of rows 1..m: the
+# class match bit (2: shift, and), the diagonal leaf (3: cost add, score
+# select and add), the deletion candidate (4: select, add and
+# saturating min on the cost, add on the score), its lexicographic
+# key_min against the leaf (10: 5 compares, 5 selects) and the band and
+# band-edge updates (5: 3 compares, 2 selects). A cell whose query class
+# does not match the row also takes the insertion leaf (2 adds) and its
+# key_min against the diagonal, whose classes are fixed (1 compare,
+# 5 selects); a matching cell takes the diagonal outright.
+OPS_PER_COLUMN = 4
+OPS_PER_CELL = 24
+OPS_PER_MISMATCH = 8
+# the byte lane tests a match as one compare of the query code with the
+# row's reference code, where the packed lanes shift and mask
+OPS_PER_CELL_BYTE = OPS_PER_CELL - 1
+
+
+def dp_work(enc: np.ndarray, lengths: np.ndarray, tables: LocateTables,
+            pack2: Optional[bool]):
+    """The DP work this batch's data needs: each read runs its active
+    columns (min_n, min(max_n, width)] over rows 0..m. ``enc`` (B, Wp)
+    and ``lengths`` (B,) are numpy arrays. Returns (active columns, cells
+    of rows 1..m, those of them whose query class (in the byte lane:
+    code) matches the row, integer operations)."""
+    spec = tables.spec
+    m, k = tables.m, tables.k
+    n = lengths.astype(np.int64)
+    bits = LANE_BITS[pack2]
+    per_byte = 8 // bits
+    cls = np.stack([(enc >> (t * bits)) & ((1 << bits) - 1)
+                    for t in range(per_byte)], axis=2).reshape(len(enc), -1)
+    max_n = n if spec.start_in_query else np.minimum(n, m + k)
+    min_n = np.zeros_like(n) if spec.stop_in_query else np.maximum(0, n - m - k)
+    j_end = np.minimum(max_n, cls.shape[1])
+    q = np.arange(cls.shape[1])[None, :]
+    active = (q >= min_n[:, None]) & (q < j_end[:, None])
+    rows = tables.table[:m].astype(np.int64)
+    if pack2 is None:  # the byte lane: rows hold the reference codes
+        n_eq = np.bincount(rows, minlength=256)
+        per_cell = OPS_PER_CELL_BYTE
+    else:
+        n_eq = np.array([int(((rows >> c) & 1).sum()) for c in range(16)])
+        per_cell = OPS_PER_CELL
+    cols = int(active.sum())
+    cells = cols * m
+    eq_cells = int(n_eq[cls[active]].sum())
+    ops = (cols * OPS_PER_COLUMN + cells * per_cell
+           + (cells - eq_cells) * OPS_PER_MISMATCH)
+    return cols, cells, eq_cells, ops
+
+
+def bound_of(enc: np.ndarray, lengths: np.ndarray, tables: LocateTables,
+             pack2: Optional[bool], clock_hz: float, sms: int,
+             wide: bool = False):
+    """The least time a card of ``sms`` SMs at ``clock_hz`` needs for one
+    launch on these inputs (numpy arrays): the larger of the integer
+    operations the data needs (dp_work) at the card's int32 rate and the
+    bytes moved (inputs read once, the result, 2 or 7 int32 per read,
+    written once) at its memory rate. Returns (ms, "operations" or
+    "bytes", dp_work's tuple)."""
+    work = dp_work(enc, lengths, tables, pack2)
+    ops_s = work[3] / (sms * INT32_LANES_PER_SM * clock_hz)
+    nbytes = enc.size + 4 * enc.shape[0] + 4 * len(tables.table) \
+        + 4 * (WIDE_ROWS if wide else 2) * enc.shape[0]
+    bytes_s = nbytes / PEAK_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes", work)

@@ -246,11 +246,9 @@ def test_parity_fixtures_reach_every_instantiation():
 @pytest.mark.parametrize("index", [0, 1, 2],
                          ids=["back", "front", "prefix"])
 def test_bound_counts_the_cells_the_kernel_runs(index, pack2):
-    """chip_smoke.dp_work counts the active columns, cells and matching
+    """align_cuda.dp_work counts the active columns, cells and matching
     cells that the kernel's loops run, read by read; the byte lane's match
     is one compare of the query code with the reference code."""
-    import chip_smoke
-
     if pack2 is None:
         spec = fx.byte_lane_specs()[index]
     else:
@@ -279,13 +277,13 @@ def test_bound_counts_the_cells_the_kernel_runs(index, pack2):
         for j in range(min_n + 1, min(max_n, enc.shape[1] * per_byte) + 1):
             cols += 1
             eq += matches(raw[r, j - 1])
-    got = chip_smoke.dp_work(enc, lens, tables, pack2)
+    got = align_cuda.dp_work(enc, lens, tables, pack2)
     assert got[:3] == (cols, cols * m, eq)
     assert 0 < eq < cols * m
-    per_cell = (chip_smoke.OPS_PER_CELL_BYTE if pack2 is None
-                else chip_smoke.OPS_PER_CELL)
-    assert got[3] == (cols * chip_smoke.OPS_PER_COLUMN + cols * m * per_cell
-                      + (cols * m - eq) * chip_smoke.OPS_PER_MISMATCH)
+    per_cell = (align_cuda.OPS_PER_CELL_BYTE if pack2 is None
+                else align_cuda.OPS_PER_CELL)
+    assert got[3] == (cols * align_cuda.OPS_PER_COLUMN + cols * m * per_cell
+                      + (cols * m - eq) * align_cuda.OPS_PER_MISMATCH)
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])

@@ -9,6 +9,11 @@ run where JAX is not installed:
 Without a card they skip.
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -1019,3 +1024,75 @@ def test_shared_upload_on_card(card, monkeypatch):
             if shared == "1":
                 assert sorted(e[2] for e in batch) == sorted(adapters)
     assert outs["cuda", "1"] == outs["cuda", "0"] == outs["cpu", "1"]
+
+
+def _run_program(args, **env):
+    """Run a program of the repository to its end; returns the JSON
+    object on its last line (None if it printed nothing) and the
+    completed process."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict({k: v for k, v in os.environ.items()
+                if not k.startswith(("CUTADAPT_TPU", "BENCH_"))}, **env)
+    r = subprocess.run([sys.executable, *args], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    return (json.loads(lines[-1]) if lines else None), r
+
+
+@pytest.mark.cuda
+def test_bench_torch_on_card(card):
+    """bench_torch.py at 65,536 reads on the card: exit 0, this card's
+    name, the kernel parity matrix ok, the kernel alone at no less than
+    its bound, every device field present."""
+    out, _ = _run_program(["bench_torch.py"], BENCH_READS="65536")
+    assert out["device"] == torch.cuda.get_device_name(0)
+    assert out["kernel_parity"] == "ok"
+    assert out["metric"] == "reads_per_sec_se_3p_adapter_trim"
+    assert out["value"] > 0 and out["power_limit_w"] > 0
+    assert out["x_bound"] >= 1 / 1.05
+    assert 0 <= out["idle_share"] < 1
+    assert out["link_pre"]["h2d_gbps"] > 0 and out["link_post"]["rtt_us"] > 0
+    assert out["device_kernel"]["rows"] == 65536
+    assert out["pipelined_pass"]["launches"]["pack2"] > 0
+    assert all(d["ms"] > 0 for d in out["pipelined_pass"]["per_shape"])
+
+
+@pytest.mark.cuda
+def test_verify_cuda_torch_on_card(card):
+    _, r = _run_program(["tools/verify_cuda_torch.py"])
+    assert "all 26 spec runs agree" in r.stderr
+
+
+@pytest.mark.cuda
+def test_bound_of_on_a_flagship_batch_on_card(card):
+    """The moved bound_of on 4,096 flagship reads staged on the card gives
+    what chip_smoke.py's bound_of gave before the move at 132 SMs and
+    1980 MHz, and at this card's SM count and clock the same count over
+    its own rate; the kernel runs those inputs at no less than that
+    bound."""
+    import chip_smoke
+
+    raw, lens = fx.flagship_rows(4096)
+    tables = align_cuda.make_tables(fx.make_engine(device="cpu")
+                                    .stages[-1].tasks[0].spec)
+    enc = torch.from_numpy(fx.encode_rows(tables.spec, raw, True)).cuda()
+    lengths = torch.from_numpy(lens).cuda()
+    args = (enc.cpu().numpy(), lengths.cpu().numpy(), tables, True)
+    ms, by, work = align_cuda.bound_of(*args, 1980e6, 132)
+    assert (by, work) == ("operations", (409600, 13516800, 3398563,
+                                         406987496))
+    assert ms == pytest.approx(0.024331112737220693, rel=1e-12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    card_ms, _, _ = align_cuda.bound_of(*args, mhz * 1e6, sms)
+    assert card_ms == pytest.approx(
+        work[3] / (sms * align_cuda.INT32_LANES_PER_SM * mhz * 1e6) * 1e3,
+        rel=1e-12)
+    kernel_ms = chip_smoke.cuda_ms(
+        lambda: align_cuda.locate_packed(enc, lengths, tables, True), 20,
+        graph=True)
+    assert kernel_ms >= card_ms / 1.05

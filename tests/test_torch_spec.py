@@ -85,6 +85,23 @@ PORT_MODULES = [
     "profile_batch_torch",
     "profile_xfer_torch",
     "kernel_bench_torch",
+    # the port's counterparts of bench.py, bench_configs.py,
+    # tools/verify_pallas_tpu.py and tools/gen_cli_reference.py
+    "bench_torch",
+    "bench_configs_torch",
+    "verify_cuda_torch",
+    "gen_cli_reference_torch",
+]
+# the measurement programs and what they import at run time, which must
+# load nothing from tests/ either
+MEASUREMENT_MODULES = [
+    "bench_torch",
+    "bench_configs_torch",
+    "verify_cuda_torch",
+    "gen_cli_reference_torch",
+    "kernel_bench_torch",
+    "profile_batch_torch",
+    "cutadapt_tpu_torch.cli",
 ]
 LEAK_CHECK = (
     "bad = sorted(m for m in sys.modules if m == 'jax'\n"
@@ -157,10 +174,30 @@ def test_port_imports_nothing_of_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def _fresh_python(*args):
-    env = dict(os.environ,
-               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests"),
-                                           os.path.join(REPO, "tools")]))
+def test_measurement_programs_import_nothing_of_jax_or_tests():
+    """A fresh interpreter without tests/ on its path imports the four
+    measurement programs and what they load at run time: neither jax, nor
+    any cutadapt_tpu module, nor any module of tests/ is loaded."""
+    code = (
+        "import importlib, os, sys\n"
+        f"for name in {MEASUREMENT_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"tests = {os.path.join(REPO, 'tests')!r}\n"
+        "from_tests = sorted(n for n, m in list(sys.modules.items())\n"
+        "    if (getattr(m, '__file__', None) or '').startswith(tests))\n"
+        "print('FROM_TESTS', from_tests)\n"
+        "if from_tests:\n"
+        "    sys.exit(1)\n"
+    ) + LEAK_CHECK
+    r = _fresh_python("-c", code, tests_on_path=False)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "FROM_TESTS []" in r.stdout
+
+
+def _fresh_python(*args, tests_on_path=True):
+    path = [REPO] + ([os.path.join(REPO, "tests")] if tests_on_path else [])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        path + [os.path.join(REPO, "tools")]))
     return subprocess.run(
         [sys.executable, *args], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,

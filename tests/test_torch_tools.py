@@ -57,6 +57,7 @@ def test_profile_batch_splits_submit():
     # the profiled pass: on the CPU it records no device time
     assert out["profiler"]["seconds"] > 0
     assert out["profiler"]["device_ms"] == 0
+    assert out["profiler"]["kernel_ms"] == 0
     assert out["profiler"]["by_name"] == []
 
 

@@ -56,7 +56,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from cutadapt_tpu_torch import accel, batch_pipeline, modifiers, native, parser
+from cutadapt_tpu_torch import accel, batch_pipeline, modifiers, parser
 from cutadapt_tpu_torch.adapters import BackAdapter, Where
 from cutadapt_tpu_torch.batch_pipeline import (
     AdapterStage,
@@ -65,14 +65,18 @@ from cutadapt_tpu_torch.batch_pipeline import (
 )
 from cutadapt_tpu_torch.io.chunks import parse_fastq_chunk
 from cutadapt_tpu_torch.io.records import SequenceRecord
-from cutadapt_tpu_torch.ops.align_cuda import kernel_layout
+# encode_rows: read bytes as a lane takes them; scalar_locate: the C++
+# scalar aligner over a batch; first_difference: the comparison rule of
+# two unpacked results
+from cutadapt_tpu_torch.ops.align_cuda import (  # noqa: F401
+    encode_rows,
+    first_difference,
+    kernel_layout,
+    scalar_locate,
+)
 from cutadapt_tpu_torch.ops.align_batch import (
     AlignerSpec,
-    effective_length,
-    encode_reference,
-    n_counts,
     query_class_info,
-    query_lut,
 )
 
 ADAPTER = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"  # TruSeq
@@ -129,6 +133,15 @@ def make_dataset(n_reads: int, read_len: int = READ_LEN,
     out[pos[:, None] + np.arange(read_len)[None, :]] = quals
     out[pos + read_len] = ord("\n")
     return out.tobytes()
+
+
+def flagship_rows(n_reads: int):
+    """The sequences of the first ``n_reads`` flagship reads as a (n, 100)
+    uint8 array, and their lengths: a fixed batch for the aligner."""
+    chunk = parse_fastq_chunk(make_dataset(n_reads))
+    buf = np.frombuffer(bytes(chunk.buf), np.uint8)
+    raw = buf[chunk.seq_start[:, None] + np.arange(READ_LEN)[None, :]]
+    return raw, chunk.seq_len.astype(np.int32)
 
 
 def make_reads(n, seed, adapters, frac=0.3, polya=False) -> bytes:
@@ -822,20 +835,6 @@ def very_long_spec() -> AlignerSpec:
                     False, Where.BACK, 0.1, 1, 3)])[0]
 
 
-def encode_rows(spec: AlignerSpec, raw: np.ndarray,
-                pack2: Optional[bool]) -> np.ndarray:
-    """Row-padded read bytes as the aligner's lane takes them: four 2-bit
-    class ids per byte (pack2 True), two 4-bit ones (False), or one
-    ``query_lut`` code per byte (None, the byte lane)."""
-    if pack2 is None:
-        return query_lut(spec)[raw]
-    cls = query_class_info(spec)[0][raw]
-    if pack2:
-        enc = (cls[:, 0::4] | (cls[:, 1::4] << 2) | (cls[:, 2::4] << 4)
-               | (cls[:, 3::4] << 6))
-    else:
-        enc = cls[:, 0::2] | (cls[:, 1::2] << 4)
-    return enc.astype(np.uint8)
 
 
 # --- the byte lane: adapters of more than 16 query classes ------------------
@@ -956,42 +955,6 @@ def random_batch(spec: AlignerSpec, rng: np.random.RandomState, B: int,
         raw[query_class_info(spec)[0][raw] > 3] = ord("A")
     raw[np.arange(L)[None, :] >= lens[:, None]] = 0
     return raw, encode_rows(spec, raw, pack2), lens
-
-
-def scalar_locate(spec: AlignerSpec, raw: np.ndarray, lens: np.ndarray):
-    """The C++ scalar aligner over each read: (found, qstart, qstop,
-    errors, score), the sequential form of the same contract."""
-    aligner = native.ScalarAligner(
-        encode_reference(spec).tobytes(), n_counts(spec),
-        effective_length(spec), spec.max_error_rate, spec.flags,
-        not (spec.wildcard_ref or spec.wildcard_query), spec.wildcard_ref,
-        spec.indel_cost, spec.min_overlap,
-    )
-    lut = query_lut(spec)
-    B = len(lens)
-    out = [np.zeros(B, bool)] + [np.zeros(B, np.int32) for _ in range(4)]
-    for i in range(B):
-        r = aligner.locate(lut[raw[i, : lens[i]]].tobytes())
-        if r is not None:
-            out[0][i] = True
-            _, _, out[1][i], out[2][i], out[4][i], out[3][i] = r
-    return tuple(out)
-
-
-def first_difference(got, want) -> Optional[str]:
-    """None if two (found, qstart, qstop, errors, score[, ref_start,
-    ref_stop]) results agree under the comparison rule, else the first
-    field that differs."""
-    if len(got) != len(want):
-        return f"fields ({len(got)} against {len(want)})"
-    if not np.array_equal(got[0], want[0]):
-        return f"found ({int((got[0] != want[0]).sum())} reads)"
-    f = want[0]
-    for name, g, w in zip(("qstart", "qstop", "errors", "score",
-                           "ref_start", "ref_stop"), got[1:], want[1:]):
-        if not np.array_equal(g[f], w[f]):
-            return f"{name} ({int((g[f] != w[f]).sum())} reads)"
-    return None
 
 
 # --- the pipeline shapes of the mesh check -----------------------------------

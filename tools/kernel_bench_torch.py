@@ -28,32 +28,33 @@ import sys
 import time
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path[:0] = [_REPO, os.path.join(_REPO, "tests")]
+sys.path.insert(0, _REPO)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 import cutadapt_tpu_torch.batch_pipeline as bp  # noqa: E402
-import torch_fixtures as fx  # noqa: E402
 from cutadapt_tpu_torch import native  # noqa: E402
 from cutadapt_tpu_torch.io.chunks import parse_fastq_chunk  # noqa: E402
 from cutadapt_tpu_torch.ops import align_cuda  # noqa: E402
 
 
-def flagship_batch(rows: int, device):
-    """(enc, lengths, tables, pack2) of ``rows`` flagship reads as the
-    engine encodes them for the kernel, on ``device``."""
-    engine = fx.make_engine(device=device)
+def encoded_batch(engine, data: bytes, read_len: int):
+    """(enc, lengths, tables, pack2) of every read of the FASTQ bytes
+    ``data`` as ``engine`` encodes them for its last task's kernel, at
+    the lane and row width it picks for reads of ``read_len`` bp, on the
+    engine's device."""
     task = engine.stages[-1].tasks[0]
     if task.byte:
         pack2 = None
     else:
         pack2 = bool(native.AVAILABLE and bp._pack2_on())
-    width = engine._bucket_length(fx.READ_LEN)
+    width = engine._bucket_length(read_len)
     if bp._exact_wire_on(engine.device):
-        width = bp._eff_width(fx.READ_LEN, width, pack2)
-    chunk = parse_fastq_chunk(fx.make_dataset(rows))
+        width = bp._eff_width(read_len, width, pack2)
+    chunk = parse_fastq_chunk(data)
+    rows = chunk.n_records
     starts = chunk.seq_start.astype(np.int64)
     lens = chunk.seq_len.astype(np.int32)
     enc = engine._encode(task, chunk, starts, lens,
@@ -61,6 +62,34 @@ def flagship_batch(rows: int, device):
     lengths = torch.from_numpy(lens)
     return (enc.to(engine.device), lengths.to(engine.device), task.tables,
             pack2)
+
+
+def flagship_batch(rows: int, device):
+    """encoded_batch of ``rows`` reads of tests/torch_fixtures.py's
+    flagship workload, on ``device``."""
+    sys.path.insert(0, os.path.join(_REPO, "tests"))
+    import torch_fixtures as fx
+
+    return encoded_batch(fx.make_engine(device=device),
+                         fx.make_dataset(rows), fx.READ_LEN)
+
+
+def time_launches(enc, lengths, tables, pack2, iters: int) -> float:
+    """Milliseconds per launch of the aligner on these inputs: on the
+    card, ``iters`` launches captured in a CUDA graph and replayed, timed
+    with CUDA events (chip_smoke.py:cuda_ms); on the CPU, the plain
+    version on the host clock after one untimed call."""
+    def launch():
+        return align_cuda.locate_packed(enc, lengths, tables, pack2)
+
+    if enc.device.type == "cuda":
+        with torch.cuda.device(enc.device):
+            return chip_smoke.cuda_ms(launch, iters, graph=True)
+    launch()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        launch()
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def main(argv=None) -> int:
@@ -78,20 +107,9 @@ def main(argv=None) -> int:
     print(f"device: {name}; lane {lane}, batch {tuple(enc.shape)} uint8, "
           f"adapter of {tables.m} bp")
 
-    def launch():
-        return align_cuda.locate_packed(enc, lengths, tables, pack2)
-
     passes = []
     for r in range(opts.repeat):
-        if device.type == "cuda":
-            with torch.cuda.device(device):
-                ms = chip_smoke.cuda_ms(launch, opts.iters, graph=True)
-        else:
-            launch()
-            t0 = time.perf_counter()
-            for _ in range(opts.iters):
-                launch()
-            ms = (time.perf_counter() - t0) / opts.iters * 1e3
+        ms = time_launches(enc, lengths, tables, pack2, opts.iters)
         passes.append(dict(ms_per_launch=ms, rows_per_sec=opts.rows / ms * 1e3))
         print(f"pass {r}: {opts.rows / ms * 1e3:,.0f} rows/s ({ms:.4f} ms per "
               f"launch of {opts.rows} rows, {opts.iters} launches)")

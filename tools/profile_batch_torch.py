@@ -39,12 +39,11 @@ import sys
 import time
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path[:0] = [_REPO, os.path.join(_REPO, "tests")]
+sys.path.insert(0, _REPO)
 
 import torch  # noqa: E402
 
 import cutadapt_tpu_torch.batch_pipeline as bp  # noqa: E402
-import torch_fixtures as fx  # noqa: E402
 from cutadapt_tpu_torch import native  # noqa: E402
 from cutadapt_tpu_torch.io.chunks import (  # noqa: E402
     assemble_window,
@@ -101,7 +100,12 @@ class Split:
 def profiled_pass(engine, chunks, device) -> dict:
     """One pipelined pass under torch.profiler (CPU and, on the card,
     CUDA activity): the device time it recorded, in all and by name (the
-    8 largest), and the busy share of the pass's wall time."""
+    8 largest), and the busy share of the pass's wall time. The sum over
+    names counts a copy twice (the copy's own event and the aten::copy_
+    that queued it); ``kernel_ms`` sums only the events that ran on the
+    card as kernels (no copy), and ``kernel_busy_share`` is its share of
+    the wall time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -117,8 +121,13 @@ def profiled_pass(engine, chunks, device) -> dict:
                      if e.self_device_time_total > 0),
                     key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    kernel_ms = sum(
+        e.self_device_time_total for e in events
+        if getattr(e, "device_type", None) == DeviceType.CUDA
+        and not e.key.startswith(("Memcpy", "Memset"))) / 1e3
     return dict(seconds=seconds, device_ms=device_ms,
-                busy_share=device_ms / 1e3 / seconds,
+                busy_share=device_ms / 1e3 / seconds, kernel_ms=kernel_ms,
+                kernel_busy_share=kernel_ms / 1e3 / seconds,
                 by_name=[dict(name=e.key, count=e.count,
                               device_ms=e.self_device_time_total / 1e3)
                          for e in events[:8]])
@@ -134,6 +143,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reads", type=int, default=200000)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     opts = ap.parse_args(argv)
+    sys.path.insert(0, os.path.join(_REPO, "tests"))
+    import torch_fixtures as fx
+
     device = bp.resolve_device(opts.device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
