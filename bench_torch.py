@@ -482,7 +482,7 @@ def main(argv=None) -> int:
         import logging
         import tempfile
 
-        from cutadapt_tpu_torch import accel
+        from cutadapt_tpu_torch import tracing
         from cutadapt_tpu_torch.cli import main as cli_main
 
         saved = {k: os.environ.get(k) for k in (
@@ -512,11 +512,13 @@ def main(argv=None) -> int:
                             sys.exit(1)
                     return n_records / dt
 
-                cli_rates = []
-                for _ in range(4):
-                    accel.reset_flight_metrics()
-                    cli_rates.append(run_main())
-                    flight_max = accel.flight_metrics()["max"]
+                # the first run traced: the most chunks in flight at once
+                tracing.enable()
+                try:
+                    cli_rates = [run_main()]
+                finally:
+                    flight_max = tracing.in_flight_max(tracing.disable())
+                cli_rates += [run_main() for _ in range(3)]
                 # the first run builds and warms; median of the rest
                 warm = sorted(cli_rates[1:])
                 cli_rps = warm[len(warm) // 2]

@@ -156,7 +156,7 @@ Phases, each of which must pass:
    phase 6 (its own launches, shapes, times and bounds, reads/s, idle
    share) with the transfer counters of its counted run per read and
    submit's host ns/read split as tools/profile_batch_torch.py splits it
-   (prefilter, windows_clean, pad_encode, upload, launch): (a) three
+   (the port's prefilter, encode and launch spans): (a) three
    Illumina 3' adapters (TruSeq, Nextera, small RNA; -e 0.1 -O 3) on
    262,144 make_reads reads, with CUTADAPT_TPU_TORCH_SHARED_UPLOAD at 1
    and 0, both held to one run of the host path; shared, every upload
@@ -760,11 +760,9 @@ def cli_phase(files, engine_rps: float) -> dict:
             f"{(times['device_ready'] - times['start']) * 1e3:.1f} ms")
         walls = []
         for i in range(TIMED_PASSES):
-            accel.reset_flight_metrics()
             walls.append(run(f"timed{i}")[1])
             log(f"cli run: {walls[-1]:.3f} s, {N_READS / walls[-1]:.1f} "
-                f"reads/s, at most {accel.flight_metrics()['max']} chunks "
-                f"in flight")
+                f"reads/s")
         walls.sort()
         wall = walls[len(walls) // 2]
         _, dt_j3 = run("j3", extra=("-j", "3"))
@@ -1007,11 +1005,9 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
             f"first chunk submitted) {started['first'] * 1e3:.1f} ms")
         walls = []
         for i in range(TIMED_PASSES):
-            accel.reset_flight_metrics()
             walls.append(engine_run(f"timed{i}"))
             log(f"{label} run: {walls[-1]:.3f} s, "
-                f"{n_reads / walls[-1]:.1f} reads/s, at most "
-                f"{accel.flight_metrics()['max']} chunks in flight")
+                f"{n_reads / walls[-1]:.1f} reads/s")
         walls.sort()
         wall = walls[len(walls) // 2]
         rps = n_reads / wall
@@ -2129,9 +2125,9 @@ THREE_ADAPTER_ARGS = ["-e", "0.1", "-O", "3"] + [
     x for ad in THREE_ADAPTERS.values() for x in ("-a", ad)]
 N_THREE_ADAPTER_READS = 262144
 THREE_ADAPTER_SEED = 16
-# submit's parts as tools/profile_batch_torch.py splits them
-SPLIT_PARTS = ("kmer_prefilter", "windows_clean", "pad_encode", "upload",
-               "launch")
+# submit's parts as tools/profile_batch_torch.py splits them (the port's
+# spans)
+SPLIT_PARTS = ("prefilter", "encode", "launch")
 
 
 class DispatchProbe:
@@ -2207,18 +2203,24 @@ class DispatchProbe:
     def splitting(self, n_reads):
         import contextlib
 
+        from cutadapt_tpu_torch import tracing
+
         sys.path.insert(0, os.path.join(HERE, "tools"))
         try:
-            from profile_batch_torch import Split
+            from profile_batch_torch import SUBMIT_PARTS, split_seconds
         finally:
             sys.path.remove(os.path.join(HERE, "tools"))
 
         @contextlib.contextmanager
         def window():
-            with Split() as split:
+            tracing.enable()
+            try:
                 yield
-            self.splits.append({k: v / n_reads * 1e9
-                                for k, v in split.seconds.items()})
+            finally:
+                records = tracing.disable()
+            self.splits.append({
+                k: v / n_reads * 1e9
+                for k, v in split_seconds(records, SUBMIT_PARTS).items()})
 
         return window()
 

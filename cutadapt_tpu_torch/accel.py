@@ -82,6 +82,7 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
+from . import tracing
 from .report import Statistics
 
 
@@ -138,32 +139,6 @@ def _chunk_bytes() -> int:
 
 _STAGE_END = object()
 
-# Chunks-in-flight gauge: a chunk counts as in flight from device
-# dispatch (submit) until its results are emitted. `max` is the
-# high-water mark per run (wire/latency overlap needs >= 3 chunks
-# concurrently dispatched-or-emitting).
-_FLIGHT_LOCK = threading.Lock()
-_FLIGHT = {"now": 0, "max": 0}
-
-
-def _flight_delta(d: int) -> None:
-    with _FLIGHT_LOCK:
-        _FLIGHT["now"] += d
-        if _FLIGHT["now"] > _FLIGHT["max"]:
-            _FLIGHT["max"] = _FLIGHT["now"]
-
-
-def reset_flight_metrics() -> None:
-    with _FLIGHT_LOCK:
-        _FLIGHT["now"] = 0
-        _FLIGHT["max"] = 0
-
-
-def flight_metrics() -> dict:
-    with _FLIGHT_LOCK:
-        return dict(_FLIGHT)
-
-
 # Chunks allowed in each hand-off queue of the drive
 PIPELINE_DEPTH = 3
 
@@ -185,15 +160,29 @@ def _pipelined_drive(producer, submit, emit, depth: int = PIPELINE_DEPTH
     links). Only the writer thread folds statistics. Exceptions from
     any stage propagate to the caller with cross-thread shutdown
     handled here.
+
+    Traced (the tracing module), the drive is a ``drive`` span; its
+    threads are the stages ``reader``, ``submit`` and ``emit``, and
+    number the chunks from 0 in order. Each chunk's ``submit`` and
+    ``emit`` span, each wait of the submit and writer threads for a
+    chunk (``wait.parsed``, ``wait.emit``) and each chunk's time in a
+    queue from its ``put`` to its ``get`` (``queue.parsed``,
+    ``queue.emit``: a blocked put is inside it) are spans; the items
+    travel with their queue span.
     """
     parsed_q: queue.Queue = queue.Queue(maxsize=depth)
     emit_q: queue.Queue = queue.Queue(maxsize=depth)
     failures = []
 
     def read_stage():
+        tracing.set_stage("reader", 0)
         try:
-            for item in producer:
-                parsed_q.put(item)
+            seq = 0
+            for item in producer:  # chunk `seq` is read and parsed here
+                parsed_q.put((item, tracing.begin("queue.parsed",
+                                                  nest=False)))
+                seq += 1
+                tracing.set_chunk(seq)
                 if failures:
                     break
         except BaseException as e:  # noqa: BLE001 - forwarded to caller
@@ -202,38 +191,62 @@ def _pipelined_drive(producer, submit, emit, depth: int = PIPELINE_DEPTH
             parsed_q.put(_STAGE_END)
 
     def write_stage():
+        tracing.set_stage("emit", 0)
+        seq = 0
         while True:
-            item = emit_q.get()
-            if item is _STAGE_END:
-                return
-            if failures:
-                _flight_delta(-1)
-                continue  # drain without emitting
+            wait = tracing.begin("wait.emit")
             try:
-                emit(item)
-            except BaseException as e:  # noqa: BLE001
-                failures.append(e)
+                got = emit_q.get()
             finally:
-                _flight_delta(-1)
+                tracing.end(wait)
+            if got is _STAGE_END:
+                return
+            pending, queued = got
+            tracing.end(queued)
+            if not failures:  # else drain without emitting
+                span = tracing.begin("emit", cpu=True)
+                try:
+                    emit(pending)
+                except BaseException as e:  # noqa: BLE001
+                    failures.append(e)
+                finally:
+                    tracing.end(span)
+            seq += 1
+            tracing.set_chunk(seq)
 
+    drive = tracing.begin("drive")
     reader = threading.Thread(target=read_stage, daemon=True)
     writer = threading.Thread(target=write_stage, daemon=True)
     reader.start()
     writer.start()
     try:
+        tracing.set_stage("submit", 0)
+        seq = 0
         while True:
-            item = parsed_q.get()
-            if item is _STAGE_END:
+            wait = tracing.begin("wait.parsed")
+            try:
+                got = parsed_q.get()
+            finally:
+                tracing.end(wait)
+            if got is _STAGE_END:
                 break
+            item, queued = got
+            tracing.end(queued)
             if failures:
                 continue  # keep draining so the reader can finish
-            _flight_delta(+1)  # in flight: dispatch start -> emitted
+            span = tracing.begin("submit", cpu=True)
             try:
-                emit_q.put(submit(item))
+                pending = submit(item)
             except BaseException as e:  # noqa: BLE001
-                _flight_delta(-1)
                 failures.append(e)
+                continue
+            finally:
+                tracing.end(span)
+            emit_q.put((pending, tracing.begin("queue.emit", nest=False)))
+            seq += 1
+            tracing.set_chunk(seq)
     finally:
+        tracing.set_stage("caller")
         emit_q.put(_STAGE_END)
         writer.join()
         # the reader stops after at most one more item (bounded queue)
@@ -243,6 +256,7 @@ def _pipelined_drive(producer, submit, emit, depth: int = PIPELINE_DEPTH
             except queue.Empty:
                 pass
         reader.join()
+        tracing.end(drive)
     if failures:
         raise failures[0]
 
@@ -715,13 +729,38 @@ def _stats_reducer_on() -> bool:
 
 def _make_stats_reducer(device):
     """A DeviceStatsReducer on the active mesh, or on ``device`` without
-    one, where _stats_reducer_on(); else None (the host-side fold)."""
-    if not _stats_reducer_on():
-        return None
-    from .batch_pipeline import get_shard_mesh
-    from .parallel.stats import DeviceStatsReducer
+    one, where _stats_reducer_on(); else None (the host-side fold). A
+    ``reducer`` span."""
+    span = tracing.begin("reducer")
+    try:
+        if not _stats_reducer_on():
+            return None
+        from .batch_pipeline import get_shard_mesh
+        from .parallel.stats import DeviceStatsReducer
 
-    return DeviceStatsReducer(get_shard_mesh(), device=device)
+        return DeviceStatsReducer(get_shard_mesh(), device=device)
+    finally:
+        tracing.end(span)
+
+
+def _parsed(parse, chunks):
+    """Each of ``chunks`` through ``parse``, in a ``parse`` span."""
+    for data in chunks:
+        span = tracing.begin("parse", cpu=True)
+        try:
+            parsed = parse(data)
+        finally:
+            tracing.end(span)
+        yield parsed
+
+
+def _write(file, data) -> None:
+    """One of emit's writes to an output file, in a ``write`` span."""
+    span = tracing.begin("write")
+    try:
+        file.write(data)
+    finally:
+        tracing.end(span)
 
 
 def _record_removals(end, removed, errors, reducer=None):
@@ -1306,27 +1345,39 @@ def _setup_device(*sides, extra_tasks=()):
 
     name = os.environ.get("CUTADAPT_TPU_TORCH_DEVICE") or "cuda"
     try:
-        device = resolve_device(name)
+        span = tracing.begin("library")
+        try:
+            device = resolve_device(name)
+            if device.type == "cuda":
+                build_library()
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            _maybe_init_distributed()
+            _setup_mesh(device)
+            if device.type == "cuda" and _stats_reducer_on():
+                stats_cuda.build_library()
+        finally:
+            tracing.end(span)
+        span = tracing.begin("engines")
+        try:
+            engines = [
+                BatchPipelineEngine(side[0], side[1], device=device,
+                                    **(side[2] if len(side) > 2 else {}))
+                for side in sides
+            ]
+        finally:
+            tracing.end(span)
         if device.type == "cuda":
-            build_library()
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        _maybe_init_distributed()
-        _setup_mesh(device)
-        if device.type == "cuda" and _stats_reducer_on():
-            stats_cuda.build_library()
-        engines = [
-            BatchPipelineEngine(side[0], side[1], device=device,
-                                **(side[2] if len(side) > 2 else {}))
-            for side in sides
-        ]
-        if device.type == "cuda":
-            with torch.cuda.device(device):
-                for engine in engines:
-                    engine.warmup(engine.length_bucket)
-                if extra_tasks:
-                    engines[0].warmup(engines[0].length_bucket,
-                                      tasks=extra_tasks)
+            span = tracing.begin("warmup")
+            try:
+                with torch.cuda.device(device):
+                    for engine in engines:
+                        engine.warmup(engine.length_bucket)
+                    if extra_tasks:
+                        engines[0].warmup(engines[0].length_bucket,
+                                          tasks=extra_tasks)
+            finally:
+                tracing.end(span)
     except (RuntimeError, ValueError) as e:
         raise DeviceError(
             f"the GPU engine could not start: {e} (set "
@@ -1387,11 +1438,15 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
     name_edits, zero_cap = translated.name_edits, translated.zero_cap
     RUN_TIMES.update(start=time.perf_counter(), device_ready=None,
                      first_submit=None)
-    engine, = _setup_device((stages, filters, dict(
-        want_ref_coords=side["wildcard"] is not None,
-        qual_cap_base=zero_cap,
-    )))
-    reducer = _make_stats_reducer(engine.device)
+    setup = tracing.begin("engine_setup")
+    try:
+        engine, = _setup_device((stages, filters, dict(
+            want_ref_coords=side["wildcard"] is not None,
+            qual_cap_base=zero_cap,
+        )))
+        reducer = _make_stats_reducer(engine.device)
+    finally:
+        tracing.end(setup)
     RUN_TIMES["device_ready"] = time.perf_counter()
 
     from .batch_pipeline import CutStage
@@ -1470,6 +1525,13 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
         engine.pre_filter_edit = pre_filter_edit
 
     def render(chunk, ws, we, mask, stats, writes_fasta):
+        span = tracing.begin("assemble")
+        try:
+            return assemble_records(chunk, ws, we, mask, stats, writes_fasta)
+        finally:
+            tracing.end(span)
+
+    def assemble_records(chunk, ws, we, mask, stats, writes_fasta):
         if writes_fasta:
             if transform_mode is not None:
                 rs, re_ = stats["remainder"]
@@ -1516,7 +1578,7 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
             )
         written_lengths = None
         if demux is None:
-            out_file.write(render(chunk, ws, we, keep, stats, out_fasta))
+            _write(out_file, render(chunk, ws, we, keep, stats, out_fasta))
             written_lengths = sink._statistics
         else:
             gids = stats["last_adapter_gid"]
@@ -1534,14 +1596,15 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
             lens_out = we - ws
             for (ff, writes_fasta), mask in per_file.values():
                 if mask.any():
-                    ff.write(render(chunk, ws, we, mask, stats, writes_fasta))
+                    _write(ff, render(chunk, ws, we, mask, stats,
+                                      writes_fasta))
                     _record_written(demux._statistics, 1, reducer,
                                     values=lens_out[mask])
         # routed filter outputs (--too-short-output etc.): records a
         # filter dropped, in input order, with their state at drop time
         for out, newly in zip(filter_files, stats["filter_dropped_masks"]):
             if out is not None and newly.any():
-                out[0].write(render(chunk, ws, we, newly, stats, out[1]))
+                _write(out[0], render(chunk, ws, we, newly, stats, out[1]))
         if reducer is None:
             for f, count in zip(filters, stats["filter_counts"]):
                 f.step._filtered += count
@@ -1557,14 +1620,15 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
             progress.update(stats["n"])
 
     if fasta_in:
-        def producer():
-            line = 0
-            for data in read_chunks(infile, _chunk_bytes()):
-                yield parse_fasta_chunk(data, first_line=line)
-                line += int(
-                    (np.frombuffer(data, np.uint8) == 10).sum()
-                )
-        chunks_iter = producer()
+        line = 0
+
+        def parse_fasta(data):
+            nonlocal line
+            parsed = parse_fasta_chunk(data, first_line=line)
+            line += int((np.frombuffer(data, np.uint8) == 10).sum())
+            return parsed
+
+        chunks_iter = _parsed(parse_fasta, read_chunks(infile, _chunk_bytes()))
     elif fmt == "bam":
         # qualities may be absent per record (0xFF); that is an error
         # exactly when some output actually needs them
@@ -1576,15 +1640,13 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
             if untrimmed_file is not None:
                 fasta_outputs.append(untrimmed_file[1])
         quals_required = not all(fasta_outputs) or side["info"] is not None
-        chunks_iter = (
-            parse_bam_chunk(data, quals_required)
-            for data in read_chunks(infile, _chunk_bytes())
+        chunks_iter = _parsed(
+            lambda data: parse_bam_chunk(data, quals_required),
+            read_chunks(infile, _chunk_bytes()),
         )
     else:
-        chunks_iter = (
-            parse_fastq_chunk(data)
-            for data in read_chunks(infile, _chunk_bytes())
-        )
+        chunks_iter = _parsed(parse_fastq_chunk,
+                              read_chunks(infile, _chunk_bytes()))
     _pipelined_drive(
         chunks_iter, _on_device(submit, engine.device),
         _on_device(emit, engine.device),
@@ -2301,19 +2363,26 @@ def _make_side_render(stages_s, assemble_s, writes_fasta):
     """Per-side record renderer of one paired output: FASTQ through the
     side's stage assembler; FASTA plain or with the mask/lowercase
     transform (of the side's stage, or published in the stats by the
-    paired --revcomp)."""
-    if not writes_fasta:
-        return assemble_s
+    paired --revcomp), in an ``assemble`` span."""
     from .io.chunks import assemble_fasta_transform, assemble_fasta_window
 
     tm_static = _TRANSFORM_MODES.get(_transform_action(stages_s))
 
-    def render(c, ws, we, m, st):
+    def fasta(c, ws, we, m, st):
         tm = tm_static or _TRANSFORM_MODES.get(st.get("transform_action"))
         if tm is not None:
             rs, re_ = st["remainder"]
             return assemble_fasta_transform(c, ws, we, rs, re_, m, tm)
         return assemble_fasta_window(c, ws, we, m)
+
+    assemble = fasta if writes_fasta else assemble_s
+
+    def render(c, ws, we, m, st):
+        span = tracing.begin("assemble")
+        try:
+            return assemble(c, ws, we, m, st)
+        finally:
+            tracing.end(span)
 
     return render
 
@@ -2356,8 +2425,8 @@ def _paired_demux_router(demux, stages1, stages2, pair_stage=None,
     def write_pair(writer, cs, windows, mask, stats_pair):
         for side, w in enumerate((writer._writer1, writer._writer2)):
             ws, we = windows[side]
-            w._file.write(render_for(w, side)(cs[side], ws, we, mask,
-                                              stats_pair[side]))
+            _write(w._file, render_for(w, side)(cs[side], ws, we, mask,
+                                                stats_pair[side]))
             _record_written(demux._statistics, side + 1, reducer,
                             values=(we - ws)[mask])
 
@@ -2442,10 +2511,14 @@ def _interleaved_parsed_chunks(file, size, fasta=False):
         if leftover:
             data = leftover + bytes(data)
             leftover = b""
-        if fasta:
-            parsed = parse_fasta_chunk(data, first_line=line)
-        else:
-            parsed = parse_fastq_chunk(data)
+        span = tracing.begin("parse", cpu=True)
+        try:
+            if fasta:
+                parsed = parse_fasta_chunk(data, first_line=line)
+            else:
+                parsed = parse_fastq_chunk(data)
+        finally:
+            tracing.end(span)
         nrec = parsed.n_records
         if nrec % 2:
             # carve the odd record off: head_start - 1 is its '>'/'@'
@@ -2518,12 +2591,16 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
                      first_submit=None)
     # two engines, one per side, on one device; the pair filters run in
     # emit, so neither engine filters
-    engine1, engine2 = _setup_device(
-        (stages1, (), dict(
-            want_ref_coords=side_files["wildcard"] is not None)),
-        (stages2, ()), extra_tasks=extra_tasks,
-    )
-    reducer = _make_stats_reducer(engine1.device)
+    setup = tracing.begin("engine_setup")
+    try:
+        engine1, engine2 = _setup_device(
+            (stages1, (), dict(
+                want_ref_coords=side_files["wildcard"] is not None)),
+            (stages2, ()), extra_tasks=extra_tasks,
+        )
+        reducer = _make_stats_reducer(engine1.device)
+    finally:
+        tracing.end(setup)
     RUN_TIMES["device_ready"] = time.perf_counter()
 
     from types import SimpleNamespace
@@ -2654,24 +2731,29 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
         tm = _TRANSFORM_MODES.get(
             st1.get("transform_action") or st2.get("transform_action")
         )
-        if tm is None:
-            asm = assemble_fasta_window if out_fasta else assemble_window
-            dest.write(asm(full, wsa, wea, kp))
-            return
-        # mask/lowercase: interleave each side's remainder (a side
-        # without an adapter stage masks nothing: its remainder is its
-        # whole window)
-        rsa = np.empty(N2, np.int32)
-        rea = np.empty(N2, np.int32)
-        rsa[0::2], rea[0::2] = st1.get("remainder", (ws1, we1))
-        rsa[1::2], rea[1::2] = st2.get("remainder", (ws2, we2))
-        if out_fasta:
-            dest.write(assemble_fasta_transform(full, wsa, wea, rsa, rea,
-                                                kp, tm))
-        else:
-            dest.write(_assemble_transform(
-                full, wsa, wea, kp, {"remainder": (rsa, rea)}, tm
-            ))
+        span = tracing.begin("assemble")
+        try:
+            if tm is None:
+                asm = assemble_fasta_window if out_fasta else assemble_window
+                data = asm(full, wsa, wea, kp)
+            else:
+                # mask/lowercase: interleave each side's remainder (a
+                # side without an adapter stage masks nothing: its
+                # remainder is its whole window)
+                rsa = np.empty(N2, np.int32)
+                rea = np.empty(N2, np.int32)
+                rsa[0::2], rea[0::2] = st1.get("remainder", (ws1, we1))
+                rsa[1::2], rea[1::2] = st2.get("remainder", (ws2, we2))
+                if out_fasta:
+                    data = assemble_fasta_transform(full, wsa, wea, rsa,
+                                                    rea, kp, tm)
+                else:
+                    data = _assemble_transform(
+                        full, wsa, wea, kp, {"remainder": (rsa, rea)}, tm
+                    )
+        finally:
+            tracing.end(span)
+        _write(dest, data)
 
     def emit(item):
         nonlocal n, bp1, bp2
@@ -2818,10 +2900,10 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
                         stats1, stats2,
                     )
                 else:
-                    step.writer._writer1._file.write(
-                        renders[0](c1, ws1, we1, newly, stats1))
-                    step.writer._writer2._file.write(
-                        renders[1](c2, ws2, we2, newly, stats2))
+                    _write(step.writer._writer1._file,
+                           renders[0](c1, ws1, we1, newly, stats1))
+                    _write(step.writer._writer2._file,
+                           renders[1](c2, ws2, we2, newly, stats2))
             keep &= ~drop
         if demux is not None:
             router((c1, c2), ((ws1, we1), (ws2, we2)), keep, stats_pair)
@@ -2830,8 +2912,8 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
                 interleave_write(inter_out, full, ws1, we1, ws2, we2, keep,
                                  inter_fasta, stats1, stats2)
             else:
-                out1.write(render1(c1, ws1, we1, keep, stats1))
-                out2.write(render2(c2, ws2, we2, keep, stats2))
+                _write(out1, render1(c1, ws1, we1, keep, stats1))
+                _write(out2, render2(c2, ws2, we2, keep, stats2))
             _record_written(wl, 1, reducer, values=len1[keep])
             _record_written(wl, 2, reducer, values=len2[keep])
         bp1 += _apply_side_stats(stats1, stages1, cutters[0], None, reducer)
@@ -2854,15 +2936,24 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
                 )
         elif fasta_in:
             lines = [0, 0]
-            for d1, d2 in read_paired_chunks(f1, f2, _chunk_bytes()):
+
+            def parse_pair(pair):
+                d1, d2 = pair
                 p1 = parse_fasta_chunk(d1, first_line=lines[0])
                 p2 = parse_fasta_chunk(d2, first_line=lines[1])
                 lines[0] += int((np.frombuffer(d1, np.uint8) == 10).sum())
                 lines[1] += int((np.frombuffer(d2, np.uint8) == 10).sum())
-                yield p1, p2, None
+                return p1, p2, None
+
+            yield from _parsed(parse_pair,
+                               read_paired_chunks(f1, f2, _chunk_bytes()))
         else:
-            for d1, d2 in read_paired_chunks(f1, f2, _chunk_bytes()):
-                yield parse_fastq_chunk(d1), parse_fastq_chunk(d2), None
+            def parse_pair(pair):
+                return (parse_fastq_chunk(pair[0]),
+                        parse_fastq_chunk(pair[1]), None)
+
+            yield from _parsed(parse_pair,
+                               read_paired_chunks(f1, f2, _chunk_bytes()))
 
     def submit_pair(item):
         p1, p2, full = item

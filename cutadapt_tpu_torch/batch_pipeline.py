@@ -84,7 +84,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from . import native
+from . import native, tracing
 from .adapters import Where
 from .io.chunks import assemble_window, parse_fastq_chunk, zero_cap_chunk
 from .ops.align_batch import AlignerSpec, query_class_info, query_lut
@@ -345,7 +345,11 @@ class DeviceResult:
     def numpy(self) -> np.ndarray:
         self.copy_to_host_async()
         if self._event is not None:
-            self._event.synchronize()
+            span = tracing.begin("result_wait")
+            try:
+                self._event.synchronize()
+            finally:
+                tracing.end(span)
         self._dev = None
         return self._host.numpy()
 
@@ -1105,6 +1109,15 @@ class BatchPipelineEngine:
         selected windows as 2-bit (pack2 True) or 4-bit (False) packed
         class ids, or (None) one byte per base, for the byte lane or the
         host comparer; pinned when it goes to a CUDA device."""
+        span = tracing.begin("encode")
+        try:
+            return self._encode_rows(task, chunk, starts, lens, sel, rows,
+                                     width, pack2)
+        finally:
+            tracing.end(span)
+
+    def _encode_rows(self, task, chunk, starts, lens, sel, rows, width,
+                     pack2: Optional[bool]) -> torch.Tensor:
         if pack2 is None:
             w_in = width
         else:
@@ -1194,12 +1207,16 @@ class BatchPipelineEngine:
         if (_device_prefilter_on() or not native.AVAILABLE
                 or any(t.pf_tables is None for t in tasks)):
             return np.arange(len(starts))
-        mask = np.zeros(len(starts), bool)
-        for t in tasks:
-            mask |= native.kmer_prefilter(
-                chunk.buf, starts, lens, t.pf_tables, reverse=t.reverse
-            ).astype(bool)
-        return np.flatnonzero(mask)
+        span = tracing.begin("prefilter")
+        try:
+            mask = np.zeros(len(starts), bool)
+            for t in tasks:
+                mask |= native.kmer_prefilter(
+                    chunk.buf, starts, lens, t.pf_tables, reverse=t.reverse
+                ).astype(bool)
+            return np.flatnonzero(mask)
+        finally:
+            tracing.end(span)
 
     def _dispatch_windows(self, task, chunk, starts, lens, width):
         """Dispatch one task over explicit (starts, lens) window arrays;
@@ -1276,6 +1293,15 @@ class BatchPipelineEngine:
         the scalar aligner (zero wire). In exact-wire mode each lane is
         length-sorted (descending), so the batches after the first get
         progressively narrower widths."""
+        span = tracing.begin("encode")
+        try:
+            return self._lane_order(task, chunk, c_starts, c_lens, width,
+                                    host_tail_ok)
+        finally:
+            tracing.end(span)
+
+    def _lane_order(self, task, chunk, c_starts, c_lens, width,
+                    host_tail_ok):
         n = len(c_starts)
         order = np.arange(n)
         lanes = [(n, None if task.byte else False)]
@@ -1357,10 +1383,15 @@ class BatchPipelineEngine:
                     h2d=enc.numel() + sub_len.numel() * sub_len.element_size(),
                     candidates=take, dp_rows=size * len(tasks),
                 )
-                results = launch_batch(tasks, enc, sub_len, self.device, p2,
-                                       wide)
+                span = tracing.begin("launch")
+                try:
+                    results = launch_batch(tasks, enc, sub_len, self.device,
+                                           p2, wide)
+                    for fut in results:
+                        fut.copy_to_host_async()
+                finally:
+                    tracing.end(span)
                 for futs, fut in zip(futures, results):
-                    fut.copy_to_host_async()
                     futs.append((rows.start, take, fut, wide))
                 off += size
             if dev_count < count:
@@ -1722,10 +1753,14 @@ class BatchPipelineEngine:
         pos = self._adapter_pos
         if pos is None:
             pos = len(self.stages)
-        for si, stage in enumerate(self.stages[:pos]):
-            win_start, win_stop = self._apply_host_stage(
-                si, stage, parsed, win_start, win_stop, stats
-            )
+        span = tracing.begin("host_stages") if pos else None
+        try:
+            for si, stage in enumerate(self.stages[:pos]):
+                win_start, win_stop = self._apply_host_stage(
+                    si, stage, parsed, win_start, win_stop, stats
+                )
+        finally:
+            tracing.end(span)
         stage = None
         dp_futures = None
         width = 0

@@ -45,7 +45,7 @@ from argparse import SUPPRESS, ArgumentParser, HelpFormatter
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
-from cutadapt_tpu_torch import __version__
+from cutadapt_tpu_torch import __version__, tracing
 from cutadapt_tpu_torch.adapters import Adapter, InvalidCharacter, warn_duplicate_adapters
 from cutadapt_tpu_torch.io.files import FileOpener, InputPaths, OutputFiles
 from cutadapt_tpu_torch.io.records import FileFormatError, UnknownFileFormat
@@ -1324,8 +1324,17 @@ def main_cli():  # pragma: no cover
 def main(cmdlineargs) -> Statistics:
     """
     Set up a processing pipeline from the command-line arguments, run it
-    and return a Statistics object.
+    and return a Statistics object. Traced, the whole call is a ``call``
+    span.
     """
+    span = tracing.begin_call()
+    try:
+        return _main(cmdlineargs)
+    finally:
+        tracing.end(span)
+
+
+def _main(cmdlineargs) -> Statistics:
     start_time = time.time()
     parser = get_argument_parser()
     if not cmdlineargs:

@@ -17,6 +17,7 @@ from typing import BinaryIO, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from .. import tracing
 from .records import (
     BamFormatError,
     FastaFormatError,
@@ -614,16 +615,20 @@ def read_chunks(
         fmt = "bam_no_header"
     state = _ChunkState(file, fmt, buffer_size)
     while True:
-        data = state.fill()
-        if not data:
-            return
-        end, n = _complete_records_end(data, fmt, state.eof)
-        if end == 0 and not state.eof:
-            raise ValueError(
-                "The first record does not fit into the buffer; increase "
-                "--buffer-size"
-            )
-        state.leftover = data[end:]
+        span = tracing.begin("read", cpu=True)
+        try:
+            data = state.fill()
+            if not data:
+                return
+            end, n = _complete_records_end(data, fmt, state.eof)
+            if end == 0 and not state.eof:
+                raise ValueError(
+                    "The first record does not fit into the buffer; "
+                    "increase --buffer-size"
+                )
+            state.leftover = data[end:]
+        finally:
+            tracing.end(span)
         if end:
             yield memoryview(data)[:end]
         if state.eof and not state.leftover.strip():
@@ -649,31 +654,38 @@ def read_paired_chunks(
     s1 = _ChunkState(file1, fmt1, buffer_size)
     s2 = _ChunkState(file2, fmt2, buffer_size)
     while True:
-        d1 = s1.fill()
-        d2 = s2.fill()
-        if not d1 and not d2:
-            return
-        end1, n1 = _complete_records_end(d1, fmt1, s1.eof)
-        end2, n2 = _complete_records_end(d2, fmt2, s2.eof)
-        n = min(n1, n2)
+        span = tracing.begin("read", cpu=True)
+        try:
+            d1 = s1.fill()
+            d2 = s2.fill()
+            if not d1 and not d2:
+                return
+            end1, n1 = _complete_records_end(d1, fmt1, s1.eof)
+            end2, n2 = _complete_records_end(d2, fmt2, s2.eof)
+            n = min(n1, n2)
+            if n == 0:
+                if (d1 and not s1.eof) or (d2 and not s2.eof):
+                    raise ValueError(
+                        "The first record does not fit into the buffer; "
+                        "increase --buffer-size"
+                    )
+                # One side exhausted or only partial data at EOF: emit
+                # what is left so the parser reports improper pairing.
+                s1.leftover = b""
+                s2.leftover = b""
+                pair = (memoryview(d1), memoryview(d2)) if d1 or d2 else None
+            else:
+                end1 = _end_of_n_records(d1, fmt1, n, end1, n1)
+                end2 = _end_of_n_records(d2, fmt2, n, end2, n2)
+                s1.leftover = d1[end1:]
+                s2.leftover = d2[end2:]
+                pair = memoryview(d1[:end1]), memoryview(d2[:end2])
+        finally:
+            tracing.end(span)
+        if pair is not None:
+            yield pair
         if n == 0:
-            if (d1 and not s1.eof) or (d2 and not s2.eof):
-                raise ValueError(
-                    "The first record does not fit into the buffer; "
-                    "increase --buffer-size"
-                )
-            # One side exhausted or only partial data at EOF: emit what
-            # is left so the parser reports improper pairing.
-            s1.leftover = b""
-            s2.leftover = b""
-            if d1 or d2:
-                yield memoryview(d1), memoryview(d2)
             return
-        end1 = _end_of_n_records(d1, fmt1, n, end1, n1)
-        end2 = _end_of_n_records(d2, fmt2, n, end2, n2)
-        s1.leftover = d1[end1:]
-        s2.leftover = d2[end2:]
-        yield memoryview(d1[:end1]), memoryview(d2[:end2])
 
 
 def _end_of_n_records(buf: bytes, fmt: str, n: int, end_all: int, n_all: int) -> int:

@@ -75,6 +75,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from .align_batch import (
     AlignerSpec,
     BIG_NEG,
@@ -281,9 +282,13 @@ def locate_packed(enc: torch.Tensor, lengths: torch.Tensor,
         )
     _check_lane(tables, pack2)
     if enc.device.type == "cpu":
-        with _COUNT_LOCK:
-            PLAIN_RUNS[LANE_NAMES[pack2]] += 1
-        return locate_reference(enc, lengths, tables, pack2, wide=wide)
+        span = tracing.begin("kernel_launch")
+        try:
+            with _COUNT_LOCK:
+                PLAIN_RUNS[LANE_NAMES[pack2]] += 1
+            return locate_reference(enc, lengths, tables, pack2, wide=wide)
+        finally:
+            tracing.end(span)
     if enc.device.type != "cuda":
         raise ValueError(f"unsupported device {enc.device}")
     return _launch(enc.contiguous(), lengths.contiguous(), tables, pack2,
@@ -454,15 +459,20 @@ def _launch(enc, lengths, tables: LocateTables, pack2: Optional[bool],
     spec = tables.spec
     with torch.cuda.device(enc.device):
         stream = torch.cuda.current_stream(enc.device).cuda_stream
-        err = lib.align_locate_launch(
-            LANE_BITS[pack2], lay.lanes, lay.rows, MODES.index(lay.mode),
-            enc.data_ptr(), lengths.data_ptr(), tab.data_ptr(),
-            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            B, Wp, tables.m, tables.k, int(spec.flags),
-            int(spec.indel_cost), int(spec.min_overlap), tables.eff_len,
-            int(spec.wildcard_ref), tables.n_minlen, int(wide),
-            lay.smem_bytes, stream,
-        )
+        span = tracing.begin("kernel_launch")
+        try:
+            err = lib.align_locate_launch(
+                LANE_BITS[pack2], lay.lanes, lay.rows, MODES.index(lay.mode),
+                enc.data_ptr(), lengths.data_ptr(), tab.data_ptr(),
+                out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                B, Wp, tables.m, tables.k, int(spec.flags),
+                int(spec.indel_cost), int(spec.min_overlap), tables.eff_len,
+                int(spec.wildcard_ref), tables.n_minlen, int(wide),
+                lay.smem_bytes, stream,
+            )
+        finally:
+            tracing.end(span)
     if err != 0:
         raise RuntimeError(f"align_locate kernel launch failed: CUDA error {err}")
     key = template_args(LANE_BITS[pack2], lay)

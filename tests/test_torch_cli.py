@@ -27,7 +27,7 @@ import pytest
 from cutadapt_tpu import adapters as jax_adapters
 from cutadapt_tpu import cli as jax_cli
 from cutadapt_tpu import report as jax_report
-from cutadapt_tpu_torch import accel, batch_pipeline, cli
+from cutadapt_tpu_torch import accel, batch_pipeline, cli, tracing
 from cutadapt_tpu_torch import adapters as port_adapters
 from cutadapt_tpu_torch import report as port_report
 from cutadapt_tpu_torch.ops import align_cuda
@@ -174,13 +174,16 @@ def test_drives_are_byte_identical(port_env, tmp_path, case_id, cores):
         drive(producer, counted, emit)
 
     port_env.setattr(accel, "_pipelined_drive", counted_drive)
-    accel.reset_flight_metrics()
     runs = plain_runs()
-    _, out = run_case(case_id, tmp_path, ("-j", cores))
+    tracing.enable()
+    try:
+        _, out = run_case(case_id, tmp_path, ("-j", cores))
+    finally:
+        records = tracing.disable()
     assert read(out) == read(golden_path(BY_ID[case_id][2]))
     assert plain_runs() > runs
     assert len(chunks) > 1
-    assert accel.flight_metrics()["max"] >= 1
+    assert tracing.in_flight_max(records) >= 1
 
 
 # small.fastq holds three reads: trimmed to 24 and 22 bp, and one of

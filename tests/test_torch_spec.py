@@ -76,6 +76,7 @@ PORT_MODULES = [
     "cutadapt_tpu_torch.statistics",
     "cutadapt_tpu_torch.steps",
     "cutadapt_tpu_torch.tokenizer",
+    "cutadapt_tpu_torch.tracing",
     "cutadapt_tpu_torch.utils",
     "chip_smoke",
     "torch_fixtures",
@@ -85,6 +86,7 @@ PORT_MODULES = [
     "profile_batch_torch",
     "profile_xfer_torch",
     "kernel_bench_torch",
+    "trace_cell_torch",
     # the port's counterparts of bench.py, bench_configs.py,
     # tools/verify_pallas_tpu.py and tools/gen_cli_reference.py
     "bench_torch",
@@ -101,6 +103,7 @@ MEASUREMENT_MODULES = [
     "gen_cli_reference_torch",
     "kernel_bench_torch",
     "profile_batch_torch",
+    "trace_cell_torch",
     "cutadapt_tpu_torch.cli",
 ]
 LEAK_CHECK = (

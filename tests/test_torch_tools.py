@@ -45,14 +45,18 @@ def test_profile_batch_splits_submit():
                    "--device", "cpu")
     assert out["reads"] == 1000 and out["device"] == "cpu"
     assert set(out["stage_ms"]) == {"parse", "submit", "collect", "assemble"}
+    # submit split by the port's spans
     split = out["submit_split_ms"]
-    for part in ("kmer_prefilter", "windows_clean", "pad_encode",
-                 "pinned allocations", "upload", "launch", "copy back",
-                 "rest"):
-        assert part in split
-    assert split["launch"] > 0 and split["kmer_prefilter"] > 0
+    assert set(split) == {"host_stages", "prefilter", "encode", "launch",
+                          "rest"}
+    assert split["launch"] > 0 and split["prefilter"] > 0
+    assert split["encode"] > 0 and split["host_stages"] == 0
     # the parts sum to submit's time
     assert sum(split.values()) == pytest.approx(out["stage_ms"]["submit"])
+    # collect's wait on the card: none on the CPU
+    collect = out["collect_split_ms"]
+    assert collect["result_wait"] == 0
+    assert sum(collect.values()) == pytest.approx(out["stage_ms"]["collect"])
     assert out["pipelined_reads_per_sec"] > 0
     # the profiled pass: on the CPU it records no device time
     assert out["profiler"]["seconds"] > 0
@@ -121,3 +125,204 @@ def test_fuzz_parity_draws_the_dispatch_modes(monkeypatch):
         assert fuzz.main_fuzz(["1", str(seed), "--device", "cpu"]) == 0
     assert seen and set(seen) == {
         ("1", knobs["CUTADAPT_TPU_TORCH_SHARED_UPLOAD"])}
+
+
+def _trace_cell():
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    try:
+        import trace_cell_torch
+    finally:
+        sys.path.remove(os.path.join(REPO, "tools"))
+    return trace_cell_torch
+
+
+def _span(i, name, stage, start, end, parent=None, chunk=None, cpu=None,
+          call=1):
+    from cutadapt_tpu_torch.tracing import Span
+
+    s = Span()
+    s.id, s.name, s.stage, s.call, s.chunk = i, name, stage, call, chunk
+    s.parent, s.start, s.end, s.cpu = parent, start, end, cpu
+    return s
+
+
+def _made_up_call():
+    """One call of two chunks on a made-up clock (ns): the reader reads
+    and parses, submit waits and submits, emit waits, emits and writes."""
+    return [
+        _span(0, "call", "caller", 0, 1000),
+        _span(1, "engine_setup", "caller", 100, 200, parent=0),
+        _span(2, "drive", "caller", 210, 950, parent=0),
+        _span(3, "read", "reader", 215, 250, chunk=0),
+        _span(4, "parse", "reader", 250, 300, chunk=0),
+        _span(5, "queue.parsed", "reader", 300, 320, chunk=0),
+        _span(6, "read", "reader", 320, 350, chunk=1),
+        _span(7, "parse", "reader", 350, 400, chunk=1),
+        _span(8, "queue.parsed", "reader", 400, 600, chunk=1),
+        _span(9, "wait.parsed", "submit", 215, 320, parent=2, chunk=0),
+        _span(10, "submit", "submit", 320, 600, parent=2, chunk=0, cpu=100),
+        _span(11, "prefilter", "submit", 330, 400, parent=10, chunk=0),
+        _span(12, "launch", "submit", 400, 500, parent=10, chunk=0),
+        _span(13, "kernel_launch", "submit", 450, 460, parent=12, chunk=0),
+        _span(14, "queue.emit", "submit", 600, 610, chunk=0),
+        _span(15, "submit", "submit", 610, 800, parent=2, chunk=1, cpu=150),
+        _span(16, "queue.emit", "submit", 800, 820, chunk=1),
+        _span(17, "wait.emit", "emit", 215, 610, chunk=0),
+        _span(18, "emit", "emit", 610, 800, chunk=0, cpu=60),
+        _span(19, "result_wait", "emit", 620, 700, parent=18, chunk=0),
+        _span(20, "write", "emit", 780, 790, parent=18, chunk=0),
+        _span(21, "wait.emit", "emit", 800, 820, chunk=1),
+        _span(22, "emit", "emit", 820, 940, chunk=1, cpu=40),
+        _span(23, "library", "caller", 110, 150, parent=1),
+    ]
+
+
+def test_trace_cell_readers_on_made_up_spans():
+    tc = _trace_cell()
+    spans = _made_up_call()
+    # the kernel_launch span 450-460 holds its launch record at 455, and
+    # the kernel starts at 470
+    m = tc.metrics({"port_spans": spans, "reads": 10,
+                    "aligner_launches": [(455, 470)]})
+    assert m["call_prologue_ms"] == 100 / 1e6
+    assert m["engine_setup_ms"] == 100 / 1e6
+    assert m["call_epilogue_ms"] == 50 / 1e6
+    assert m["read_ns_per_read"] == 6.5
+    assert m["submit_queue_ns_per_read"] == 22
+    assert m["submit_starved_ns_per_read"] == 10.5
+    assert m["submit_cpu_ns_per_read"] == 25
+    assert m["prefilter_ns_per_read"] == 7
+    assert m["launch_ns_per_read"] == 10
+    assert m["emit_queue_ns_per_read"] == 3
+    assert m["emit_cpu_ns_per_read"] == 10
+    assert m["result_wait_ns_per_read"] == 8
+    assert m["write_ns_per_read"] == 1
+    assert m["launch_to_kernel_us"] == 0.02
+    # nothing recorded, nothing read
+    for absent in ("host_stages_ns_per_read", "encode_ns_per_read",
+                   "assemble_ns_per_read"):
+        assert absent not in m
+    assert m["wall_ns_per_read"]["submit"] == 47
+    assert m["cpu_ns_per_read"] == {"read": 0, "parse": 0, "submit": 25,
+                                    "emit": 10}
+    empty = {"wall_ns_per_read": dict.fromkeys(tc.WALL, 0),
+             "cpu_ns_per_read": dict.fromkeys(tc.CPU, 0)}
+    assert tc.metrics({"port_spans": [], "reads": 10}) == empty
+    # a program without the tracer: no spans in the context, no metric
+    assert tc.metrics({"reads": 10}) == empty
+    for name, read in tc.READERS.items():
+        assert read({"reads": 10}) is None, name
+
+
+def test_trace_cell_clock_and_cover_checks():
+    tc = _trace_cell()
+    spans = _made_up_call()
+    assert tc.launch_pairs(spans, [(455, 470)]) == [(450, 455, 470)]
+    # launch records outside every span are not paired
+    assert tc.launch_pairs(spans, [(300, 310), (455, 470), (900, 905)]) == [
+        (450, 455, 470)]
+    # a span with no record, or two, pairs nothing
+    assert tc.launch_pairs(spans, [(470, 480)]) is None
+    assert tc.launch_pairs(spans, [(452, 470), (458, 475)]) is None
+    assert tc.launch_to_kernel_us({"port_spans": spans,
+                                   "aligner_launches": []}) is None
+    # a long result_wait meets the card, and ends soon after it went idle
+    wait = _span(30, "result_wait", "emit", 1000, 301_000)
+
+    def faults(busy):
+        return {k: len(v) for k, v in tc.wait_faults([wait], busy).items()}
+
+    assert faults([(150_000, 160_000)]) == {"no_device": 0, "late": 1}
+    assert faults([(250_000, 260_000)]) == {"no_device": 0, "late": 0}
+    assert faults([(0, 2000), (250_000, 300_000)]) == {"no_device": 0,
+                                                       "late": 0}
+    assert faults([(0, 400_000)]) == {"no_device": 0, "late": 0}
+    assert faults([(0, 100), (301_500, 301_600)]) == {"no_device": 1,
+                                                      "late": 0}
+    assert faults([]) == {"no_device": 1, "late": 0}
+    short = _span(31, "result_wait", "emit", 0, 100_000)
+    assert tc.wait_faults([short], []) == {"no_device": [], "late": []}
+    cover = tc.thread_cover(spans)
+    assert cover == {"reader": 1.0, "submit": 1.0, "emit": 1.0}
+    parts = tc.call_parts(spans)
+    assert parts["untraced"] == 10 / 1e6 and parts["epilogue"] == 50 / 1e6
+    # engine set-up by its parts
+    assert parts["engine_setup.library"] == 40 / 1e6
+    assert parts["engine_setup.warmup"] == 0
+    c = tc.checks(spans, [(0, 1000)], busy=[(455, 700)], kernel_starts=[470],
+                  aligner_launches=[(455, 470)])
+    assert c["kernel_launch_spans"] == c["locate_kernels"] == 1
+    assert c["launch_lags_us"]["span_to_kernel"] == {
+        "min": 0.02, "median": 0.02, "negative": 0}
+    assert c["call_parts_ms_mean"]["engine_setup.library"] == 40 / 1e6
+    assert c["call_over_harness"] == [1.0, 1.0]
+    assert c["untraced_share_max"] == 0.01
+
+
+def test_trace_cell_names_each_threads_span_in_idle_gaps():
+    tc = _trace_cell()
+    spans = _made_up_call()
+    gaps = tc.idle_gaps_by_thread(spans, busy=[(455, 700)], lo=0, hi=1000,
+                                  top=2)
+    # the longest: 0-455, then 700-1000
+    assert gaps[0] == {"s": 455 / 1e9, "reader": "none", "main": "drive",
+                       "emit": "wait.emit"}
+    assert gaps[1] == {"s": 300 / 1e9, "reader": "none",
+                       "main": "drive", "emit": "none"}
+    # over 320-600 the submit thread is in submit, the reader blocked on
+    # a full queue, the emit thread waiting
+    assert tc.innermost(spans, ("caller", "submit"), 320, 600) == "submit"
+    assert tc.innermost(spans, ("reader",), 420, 600) == "queue.parsed"
+    assert tc.innermost(spans, ("emit",), 320, 600) == "wait.emit"
+
+
+@pytest.mark.parametrize("cell", ["se_truseq.bulk", "pe_truseq_q20.bulk"])
+def test_trace_cell_runs_the_harness_with_the_tracer(cell):
+    out, _ = _tool("trace_cell_torch", "--workload", cell, "--seed",
+                   "2147483659", "--seconds", "0.5", "--reads", "600",
+                   "--cost", "1", "--device", "cpu")
+    assert out["device"] == "cpu" and out["result"]["correct"]
+    m = out["metrics"]
+    # no trace on the CPU: no launch_to_kernel_us
+    want = set(_trace_cell().READERS) - {"result_wait_ns_per_read",
+                                         "launch_to_kernel_us"}
+    if cell.startswith("se_"):
+        want.discard("host_stages_ns_per_read")
+    assert want <= set(m)
+    c = out["checks"]
+    # every plain run of the aligner is a kernel_launch; no trace on the CPU
+    assert c["kernel_launch_spans"] > 0 and c["locate_kernels"] == 0
+    assert min(c["thread_cover_min"].values()) >= 0.95
+    assert c["untraced_share_max"] < 0.05
+    assert c["uncovered"] and abs(c["clock_offset_drift_us"]) < 1e5
+    lo, hi = c["call_over_harness"]
+    assert 0.9 < lo <= hi <= 1.0
+    cost = out["cost"]
+    assert cost["pairs"] == 1 and len(cost["call_s"]["on"]) == 1
+
+
+def test_trace_cell_holds_spans_to_the_profilers_launch_records():
+    tc = _trace_cell()
+    spans = _made_up_call()  # one kernel_launch, at 450
+    # the launch record 5 ns into the span, its kernel 30 ns later
+    pairs = tc.launch_pairs(spans, [(455, 485)])
+    assert tc.launch_lags(pairs) == {
+        "span_to_record": {"min": 0.005, "median": 0.005, "negative": 0},
+        "record_to_kernel": {"min": 0.03, "median": 0.03, "negative": 0},
+        "span_to_kernel": {"min": 0.035, "median": 0.035, "negative": 0}}
+    # a kernel stamped before its own launch record, and before the span
+    lags = tc.launch_lags(tc.launch_pairs(spans, [(455, 440)]))
+    assert lags["record_to_kernel"]["negative"] == 1
+    assert lags["span_to_kernel"] == {"min": -0.01, "median": -0.01,
+                                      "negative": 1}
+    c = tc.checks(spans, [(0, 1000)], busy=[], kernel_starts=[470],
+                  aligner_launches=[(470, 480)])
+    assert c["launch_lags_us"] is None
+    # the stretches no top-level span covers, by the spans either side
+    gappy = spans + [_span(40, "emit", "emit", 960, 980, chunk=2),
+                     _span(41, "emit", "emit", 990, 995, chunk=3)]
+    assert tc.cover_gaps(gappy) == {"emit: emit -> emit": [20, 10]}
+    stats = tc.gap_stats(tc.cover_gaps(gappy), calls=2)
+    assert stats["emit: emit -> emit"] == {
+        "n": 2, "median_ms": 15 / 1e6, "p95_ms": 19.5 / 1e6,
+        "max_ms": 20 / 1e6, "ms_per_call": 15 / 1e6}

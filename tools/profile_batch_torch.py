@@ -5,21 +5,16 @@ The port's counterpart of tools/profile_batch.py: one chunk of the
 flagship reads (tests/torch_fixtures.py:make_dataset, 100 bp, a quarter
 with the TruSeq adapter; ``-a ADAPTER -e 0.1 -O 3``) through parse,
 submit, collect and assemble, each timed on the host clock, after a
-warm pass. Submit is split further by wrapping what it calls:
+warm pass. Submit and collect are split further by the port's own
+spans (cutadapt_tpu_torch/tracing.py), enabled around each:
 
-- ``kmer_prefilter``, ``windows_clean``, ``pad_encode``: the C++ host
-  scans (native/hostops.cpp);
-- ``pinned allocations``: the encode buffers and length tensors put in
-  page-locked memory (``BatchPipelineEngine._encode`` less its
-  ``pad_encode``, and ``_host_tensor``);
-- ``upload``: ``launch_batch`` less the kernel wrapper, the
-  host-to-device copies it queues (once per dispatch batch, for every
-  task of a shared-upload group);
-- ``launch``: the kernel wrapper ``locate_packed`` (argument checks,
-  ctypes call);
-- ``copy back``: the result's pinned host buffer, its queued copy to
-  the host and its event;
-- ``rest``: submit's own Python (lane split, window bookkeeping).
+- submit: ``host_stages`` (the host stages before the adapters),
+  ``prefilter`` (the C++ k-mer scan), ``encode`` (the lane split and the
+  windows packed into pinned buffers), ``launch`` (the upload, the
+  kernel wrapper and the queued copy back of each dispatch batch), and
+  ``rest``, submit's own Python (window bookkeeping);
+- collect: ``result_wait`` (the host waiting on each result's event)
+  and ``rest``.
 
 Then the pipelined drive (process_chunks_pipelined) end to end over the
 same reads in two chunks, and once more under torch.profiler: the device
@@ -44,57 +39,37 @@ sys.path.insert(0, _REPO)
 import torch  # noqa: E402
 
 import cutadapt_tpu_torch.batch_pipeline as bp  # noqa: E402
-from cutadapt_tpu_torch import native  # noqa: E402
+from cutadapt_tpu_torch import native, tracing  # noqa: E402
 from cutadapt_tpu_torch.io.chunks import (  # noqa: E402
     assemble_window,
     parse_fastq_chunk,
 )
 
-SUBMIT_PARTS = ("kmer_prefilter", "windows_clean", "pad_encode",
-                "pinned allocations", "upload", "launch", "copy back")
+SUBMIT_PARTS = ("host_stages", "prefilter", "encode", "launch")
+COLLECT_PARTS = ("result_wait",)
 
 
-class Split:
-    """Host seconds spent inside wrapped callables, by part. Nested
-    parts are subtracted from the part that encloses them."""
+def split_seconds(records, parts) -> dict:
+    """Seconds by part of the outermost spans named in ``parts`` (a
+    ``kernel_launch`` inside ``launch`` is in ``launch``)."""
+    seconds = dict.fromkeys(parts, 0.0)
+    for s in records:
+        if s.parent is None and s.name in seconds:
+            seconds[s.name] += (s.end - s.start) / 1e9
+    return seconds
 
-    def __init__(self):
-        self.seconds = dict.fromkeys(SUBMIT_PARTS, 0.0)
-        self._saved = []
 
-    def _wrap(self, owner, name, part, inner=()):
-        fn = getattr(owner, name)
-        seconds = self.seconds
-
-        def timed(*args, **kwargs):
-            before = sum(seconds[p] for p in inner)
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                dt = time.perf_counter() - t0
-                seconds[part] += dt - (sum(seconds[p] for p in inner)
-                                       - before)
-
-        self._saved.append((owner, name, fn))
-        setattr(owner, name, timed)
-
-    def __enter__(self):
-        engine = bp.BatchPipelineEngine
-        for name in ("kmer_prefilter", "windows_clean", "pad_encode"):
-            self._wrap(native, name, name)
-        self._wrap(engine, "_encode", "pinned allocations", ("pad_encode",))
-        self._wrap(engine, "_host_tensor", "pinned allocations")
-        self._wrap(bp, "locate_packed", "launch")
-        self._wrap(bp, "launch_batch", "upload", ("launch", "copy back"))
-        self._wrap(bp.DeviceResult, "copy_to_host_async", "copy back")
-        self._wrap(bp.ShardedResult, "copy_to_host_async", "copy back",
-                   ("copy back",))
-        return self
-
-    def __exit__(self, *exc):
-        for owner, name, fn in reversed(self._saved):
-            setattr(owner, name, fn)
+def spanned(fn, *args):
+    """``fn(*args)`` with the tracer on: (its result, its seconds, its
+    spans)."""
+    tracing.enable()
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args)
+    finally:
+        seconds = time.perf_counter() - t0
+        records = tracing.disable()
+    return out, seconds, records
 
 
 def profiled_pass(engine, chunks, device) -> dict:
@@ -160,13 +135,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     chunk = parse_fastq_chunk(data)
     spent["parse"] = time.perf_counter() - t0
-    with Split() as split:
-        t0 = time.perf_counter()
-        pending = engine.submit(chunk)
-        spent["submit"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ws, we, keep, _ = engine.collect(pending)
-    spent["collect"] = time.perf_counter() - t0
+    pending, spent["submit"], records = spanned(engine.submit, chunk)
+    submit_split = split_seconds(records, SUBMIT_PARTS)
+    (ws, we, keep, _), spent["collect"], records = spanned(engine.collect,
+                                                          pending)
+    collect_split = split_seconds(records, COLLECT_PARTS)
     t0 = time.perf_counter()
     assemble_window(chunk, ws, we, keep)
     spent["assemble"] = time.perf_counter() - t0
@@ -177,11 +150,12 @@ def main(argv=None) -> int:
         print(f"{k:24s} {v * 1e3:9.2f} ms  {v / total * 100:5.1f}%  "
               f"{v / n * 1e9:8.1f} ns/read")
     print(f"{'TOTAL':24s} {total * 1e3:9.2f} ms  -> {n / total:,.0f} reads/s")
-    submit_split = dict(split.seconds)
-    submit_split["rest"] = spent["submit"] - sum(split.seconds.values())
-    print("submit split: " + ", ".join(
-        f"{k} {v * 1e3:.2f} ms ({v / n * 1e9:.1f} ns/read)"
-        for k, v in submit_split.items()))
+    for stage, split in (("submit", submit_split),
+                         ("collect", collect_split)):
+        split["rest"] = spent[stage] - sum(split.values())
+        print(f"{stage} split: " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms ({v / n * 1e9:.1f} ns/read)"
+            for k, v in split.items()))
 
     chunks, n2 = fx.split_records(data, (opts.reads + 1) // 2)
     list(bp.process_chunks_pipelined(engine, chunks))  # warm
@@ -206,6 +180,7 @@ def main(argv=None) -> int:
         submit_split_ms={k: v * 1e3 for k, v in submit_split.items()},
         submit_split_ns_per_read={k: v / n * 1e9
                                   for k, v in submit_split.items()},
+        collect_split_ms={k: v * 1e3 for k, v in collect_split.items()},
         pipelined_reads_per_sec=n2 / dt, profiler=traced,
     )))
     return 0
