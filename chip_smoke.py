@@ -2127,7 +2127,7 @@ N_THREE_ADAPTER_READS = 262144
 THREE_ADAPTER_SEED = 16
 # submit's parts as tools/profile_batch_torch.py splits them (the port's
 # spans)
-SPLIT_PARTS = ("prefilter", "encode", "launch")
+SPLIT_PARTS = ("stage", "launch")
 
 
 class DispatchProbe:
@@ -2135,8 +2135,8 @@ class DispatchProbe:
     (``counting``) and of each engine's sequential pass (``splitting``).
     The counted run: the transfer counters (set to 0 just before it), the
     uploads (``upload_batch``) and the launches on each, the candidates
-    of each engine's dispatches (``_candidates``) and the rows of the
-    per-task host tails (``_lanes``), which XFER does not count; the
+    of each engine's dispatches and the rows of the per-task host tails
+    (each staged pass, ``_stage``), which XFER does not count; the
     engine's warm-up apart. The pass: submit's host time split as
     tools/profile_batch_torch.py splits it."""
 
@@ -2161,9 +2161,8 @@ class DispatchProbe:
 
         @contextlib.contextmanager
         def window():
-            saved = (bp.upload_batch, bp.locate_packed, engine._candidates,
-                     engine._lanes)
-            real_upload, real_locate, real_cand, real_lanes = saved
+            saved = (bp.upload_batch, bp.locate_packed, engine._stage)
+            real_upload, real_locate, real_stage = saved
 
             def upload(enc, lengths, device):
                 out = real_upload(enc, lengths, device)
@@ -2177,26 +2176,21 @@ class DispatchProbe:
                                tables.spec.reference)
                 return real_locate(enc, lengths, tables, pack2, wide=wide)
 
-            def candidates(eng, *args):
-                sel = real_cand(eng, *args)
+            def stage(eng, *args, **kwargs):
+                staged = real_stage(eng, *args, **kwargs)
                 probe.candidates[id(eng)] = (
-                    probe.candidates.get(id(eng), 0) + len(sel))
-                return sel
-
-            def lanes(eng, *args, **kwargs):
-                out = real_lanes(eng, *args, **kwargs)
-                probe.host_tail += out[2]
-                return out
+                    probe.candidates.get(id(eng), 0) + len(staged.sel))
+                probe.host_tail += staged.host_tail
+                return staged
 
             bp.upload_batch, bp.locate_packed = upload, locate
-            engine._candidates, engine._lanes = candidates, lanes
+            engine._stage = stage
             bp.reset_xfer_counters()
             try:
                 yield
             finally:
                 probe.xfer = bp.xfer_counters()
-                (bp.upload_batch, bp.locate_packed, engine._candidates,
-                 engine._lanes) = saved
+                bp.upload_batch, bp.locate_packed, engine._stage = saved
 
         return window()
 

@@ -19,11 +19,13 @@ two host-only kinds: the anchored comparers without indels and the
 indexed anchored adapter sets (dict lookups).
 
 Per chunk the host work is: parse (C++), the host stages before the
-adapter stage, k-mer prefilter (C++), split of the candidates into the
-2-bit lane (ACGT-only windows) and the 4-bit lane (windows with
-N/IUPAC bytes; a few of those go to the C++ scalar aligner instead),
-encode and pack into pinned buffers (C++), then one kernel launch per
-dispatch batch (``ops/align_cuda.py``). An adapter that needs more than
+adapter stage, then per dispatch the staged pass (:mod:`staging`, two
+C++ calls): k-mer prefilter, split of the candidates into the 2-bit
+lane (ACGT-only windows) and the 4-bit lane (windows with N/IUPAC
+bytes; a few of those go to the C++ scalar aligner instead), and every
+dispatch batch encoded and packed into a slot of the engine's pinned
+staging arena; then one kernel launch per dispatch batch
+(``ops/align_cuda.py``). An adapter that needs more than
 16 query classes (16 or more distinct letters compared as ASCII) sends
 every candidate to the kernel's byte lane, one ``query_lut`` code per
 base, with no lane split. Results come back through
@@ -84,7 +86,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from . import native, tracing
+from . import native, staging, tracing
+from .accel import PIPELINE_DEPTH
 from .adapters import Where
 from .io.chunks import assemble_window, parse_fastq_chunk, zero_cap_chunk
 from .ops.align_batch import AlignerSpec, query_class_info, query_lut
@@ -99,8 +102,12 @@ _QS_BITS = 14
 
 # Wire/work accounting (always on, one int add per dispatch): bytes
 # host->device and device->host, candidates and DP rows (padded batch
-# rows) are properties of the code, stable from run to run.
-XFER = {"h2d_bytes": 0, "d2h_bytes": 0, "candidates": 0, "dp_rows": 0}
+# rows) are properties of the code, stable from run to run. Beside them
+# the staged pass's: the candidates it staged (rows written into the
+# arena, and the lane remainders it handed to the scalar aligner), and
+# the staging arena's allocations (pinned where the device is CUDA).
+XFER = {"h2d_bytes": 0, "d2h_bytes": 0, "candidates": 0, "dp_rows": 0,
+        "staged_rows": 0, "pinned_allocs": 0}
 _XFER_LOCK = threading.Lock()
 
 
@@ -173,12 +180,19 @@ def reset_shard_counters() -> None:
         UNSHARDED_DISPATCHES = 0
 
 
-def _xfer_add(h2d=0, d2h=0, candidates=0, dp_rows=0) -> None:
+def _xfer_add(h2d=0, d2h=0, candidates=0, dp_rows=0, staged=0,
+              allocs=0) -> None:
     with _XFER_LOCK:
         XFER["h2d_bytes"] += h2d
         XFER["d2h_bytes"] += d2h
         XFER["candidates"] += candidates
         XFER["dp_rows"] += dp_rows
+        XFER["staged_rows"] += staged
+        XFER["pinned_allocs"] += allocs
+
+
+def _count_alloc() -> None:
+    _xfer_add(allocs=1)
 
 
 def reset_xfer_counters() -> None:
@@ -188,24 +202,6 @@ def reset_xfer_counters() -> None:
 
 def xfer_counters() -> dict:
     return dict(XFER)
-
-
-def _wire_lengths(vals: np.ndarray, size: int, wide: bool,
-                  width: Optional[int] = None) -> np.ndarray:
-    """Window lengths as they ride the wire: int16 in the packed result
-    format (whose windows are < 2**14), int32 in the wide one (long reads
-    overflow int16 at 32,768 bp), or one byte per row on the exact-wire
-    path when the batch width fits uint8. The kernel reads int32: the
-    step widens them on the device."""
-    if wide:
-        dt = np.int32
-    elif width is not None and width < 256:
-        dt = np.uint8
-    else:
-        dt = np.int16
-    sub_len = np.zeros(size, dt)
-    sub_len[: len(vals)] = vals
-    return sub_len
 
 
 def _pack2_on() -> bool:
@@ -356,6 +352,47 @@ class DeviceResult:
     def __array__(self, dtype=None, copy=None):
         arr = self.numpy()
         return arr if dtype is None else arr.astype(dtype)
+
+
+class _Events:
+    """The events of one release of a staging slot on several devices
+    (a mesh): passed when all have."""
+
+    __slots__ = ("events",)
+
+    def __init__(self, events):
+        self.events = events
+
+    def query(self) -> bool:
+        return all(e.query() for e in self.events)
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()
+
+
+class StagedPass:
+    """One staged pass (:meth:`BatchPipelineEngine._stage`): the ordered
+    candidates (positions into the windows, their starts and lengths),
+    their lanes ([(rows, pack2)]), the rows after them that go to the
+    host tail, the wide flag, the dispatch batches ((first row, rows
+    taken, pack2, enc, lengths), the tensors views of ``slot``) and each
+    lane's scalar-aligner remainder ((first row, end) in the
+    candidates)."""
+
+    __slots__ = ("sel", "c_starts", "c_lens", "lanes", "host_tail", "wide",
+                 "batches", "tails", "slot")
+
+    def __init__(self, sel, c_starts, c_lens):
+        self.sel = sel
+        self.c_starts = c_starts
+        self.c_lens = c_lens
+        self.lanes = []
+        self.host_tail = 0
+        self.wide = False
+        self.batches = []
+        self.tails = []
+        self.slot = None
 
 
 class ShardedResult:
@@ -974,6 +1011,10 @@ class BatchPipelineEngine:
         self.min_dp_batch = min_dp_batch
         self.max_dp_batch = max_dp_batch
         self._pinned = self.device.type == "cuda"
+        # one slot more than the drive's hand-off queue holds chunks
+        self._arena = staging.StagingArena(PIPELINE_DEPTH + 1, self._pinned,
+                                           on_alloc=_count_alloc)
+        self._pf_sets = {}  # the prefilter sets of _prefilter
         # split the stages at the adapter stage: everything after it
         # depends on the DP results and runs in collect()
         self._adapter_pos = next(
@@ -1103,52 +1144,6 @@ class BatchPipelineEngine:
                     t.step(enc, lens, self.device, pack2=p2,
                            wide=wide).numpy()
 
-    def _encode(self, task, chunk, starts, lens, sel, rows, width,
-                pack2: Optional[bool]) -> torch.Tensor:
-        """(rows, width/4, width/2 or width) uint8 host tensor of the
-        selected windows as 2-bit (pack2 True) or 4-bit (False) packed
-        class ids, or (None) one byte per base, for the byte lane or the
-        host comparer; pinned when it goes to a CUDA device."""
-        span = tracing.begin("encode")
-        try:
-            return self._encode_rows(task, chunk, starts, lens, sel, rows,
-                                     width, pack2)
-        finally:
-            tracing.end(span)
-
-    def _encode_rows(self, task, chunk, starts, lens, sel, rows, width,
-                     pack2: Optional[bool]) -> torch.Tensor:
-        if pack2 is None:
-            w_in = width
-        else:
-            w_in = width // 4 if pack2 else width // 2
-        enc_t = torch.zeros((rows, w_in), dtype=torch.uint8,
-                            pin_memory=self._pinned and not task.comparer)
-        enc = enc_t.numpy()
-        if native.AVAILABLE:
-            native.pad_encode(
-                chunk.buf, starts, lens, sel, width, task.lut,
-                pack4=pack2 is False, pack2=bool(pack2), out=enc,
-                reverse=task.reverse,
-            )
-        else:
-            raw = np.zeros((len(sel), width), np.uint8)
-            for pos, i in enumerate(sel):
-                win = chunk.buf[starts[i] : starts[i] + lens[i]]
-                if task.reverse:
-                    win = win[::-1]
-                raw[pos, : min(len(win), width)] = win[:width]
-            e = task.lut[raw]
-            if pack2:
-                e = (
-                    e[:, 0::4] | (e[:, 1::4] << 2)
-                    | (e[:, 2::4] << 4) | (e[:, 3::4] << 6)
-                )
-            elif pack2 is False:
-                e = e[:, 0::2] | (e[:, 1::2] << 4)
-            enc[: len(sel)] = e
-        return enc_t
-
     def _dispatch_stage(self, stage, chunk, subset, win_start, win_stop,
                         width):
         """Prefilter + encode + dispatch of every task over `subset`'s
@@ -1199,64 +1194,49 @@ class BatchPipelineEngine:
         sel, futures = self._dispatch_windows(task, chunk, starts, lens, width)
         return ("single", sel, futures)
 
-    def _candidates(self, tasks, chunk, starts, lens) -> np.ndarray:
-        """Positions of the windows that pass the k-mer prefilter of any
-        of ``tasks``: every window where one of them has none
-        (MockKmerFinder, comparers, indexed tasks, native library
-        unavailable) or with the device-side prefilter."""
+    def _prefilter(self, tasks):
+        """The k-mer prefilter of ``tasks`` for the staged pass (a
+        :class:`native.PrefilterSet`, made once per set of tasks), or
+        None where every window is a candidate: a task without tables
+        (MockKmerFinder, native library unavailable) or the device-side
+        prefilter."""
         if (_device_prefilter_on() or not native.AVAILABLE
                 or any(t.pf_tables is None for t in tasks)):
-            return np.arange(len(starts))
-        span = tracing.begin("prefilter")
-        try:
-            mask = np.zeros(len(starts), bool)
-            for t in tasks:
-                mask |= native.kmer_prefilter(
-                    chunk.buf, starts, lens, t.pf_tables, reverse=t.reverse
-                ).astype(bool)
-            return np.flatnonzero(mask)
-        finally:
-            tracing.end(span)
+            return None
+        key = tuple(id(t) for t in tasks)
+        got = self._pf_sets.get(key)
+        if got is None:
+            # the tasks are kept with their set, so their ids stay theirs
+            got = self._pf_sets[key] = (tuple(tasks), native.PrefilterSet(
+                [t.pf_tables for t in tasks], [t.reverse for t in tasks]))
+        return got[1]
 
     def _dispatch_windows(self, task, chunk, starts, lens, width):
         """Dispatch one task over explicit (starts, lens) window arrays;
         returns (sel positions into starts, futures)."""
-        sel = self._candidates([task], chunk, starts, lens)
-        futures = []
-        if len(sel) == 0:
-            return sel, futures
-        c_starts = starts[sel]
-        c_lens = lens[sel]
-        if task.indexed:
-            futures.append(("host",) + task.run_index(chunk, c_starts, c_lens))
-            return sel, futures
-        if task.comparer:
+        if task.indexed or task.comparer:
+            # host-only tasks: every window, no launch
+            sel = np.arange(len(starts))
+            if len(sel) == 0:
+                return sel, []
+            if task.indexed:
+                return sel, [("host",) + task.run_index(chunk, starts, lens)]
             m_w = (len(task.cmp_ref) + 1) // 2 * 2
-            enc = self._encode(
-                task, chunk, c_starts, c_lens,
-                np.arange(len(sel), dtype=np.int64), len(sel), m_w, None,
-            ).numpy()
-            futures.append(("host",) + task.run_comparer(enc, c_lens))
-            return sel, futures
-        # windows of 2**14 bp or more overflow the packed 14-bit
-        # coordinates, and adapter-side coordinates ride only the wide
-        # result: take it (JAX batch_pipeline.py:1416-1420)
-        wide = (
-            int(c_lens.max()) >= (1 << _QS_BITS) or self.want_ref_coords
-        )
-        order, lanes, host_tail = self._lanes(task, chunk, c_starts, c_lens,
-                                              width, host_tail_ok=True)
-        sel, c_starts, c_lens = sel[order], c_starts[order], c_lens[order]
+            enc = staging.encode_rows(chunk.buf, starts, lens, sel, len(sel),
+                                      m_w, task.lut, task.reverse, None)
+            return sel, [("host",) + task.run_comparer(enc, lens)]
         tail_max = _scalar_tail_max() if native.AVAILABLE else 0
-        (futures,) = self._launch_lanes([task], chunk, c_starts, c_lens,
-                                        lanes, width, wide, tail_max)
-        if host_tail:
-            base = len(sel) - host_tail
+        staged = self._stage([task], chunk, starts, lens, width,
+                             host_tail_ok=True, tail_max=tail_max)
+        (futures,) = self._launch_staged([task], chunk, staged)
+        if staged.host_tail:
+            base = len(staged.sel) - staged.host_tail
             futures.append(
                 ("host_range", base)
-                + task.run_scalar(chunk, c_starts[base:], c_lens[base:])
+                + task.run_scalar(chunk, staged.c_starts[base:],
+                                  staged.c_lens[base:])
             )
-        return sel, futures
+        return staged.sel, futures
 
     def _dispatch_group(self, key, tasks, chunk, starts, lens, width):
         """One upload for a group of ``tasks`` (:func:`_upload_key`
@@ -1267,85 +1247,81 @@ class BatchPipelineEngine:
         launched once per member, and the 2-bit lane's scalar tail run per
         member (reference batch_pipeline.py:1109-1365). Returns (sel, one
         futures list per member), positions into starts."""
-        sel = self._candidates(tasks, chunk, starts, lens)
-        if len(sel) == 0:
-            return sel, [[] for _ in tasks]
-        c_starts = starts[sel]
-        c_lens = lens[sel]
-        wide = (
-            int(c_lens.max()) >= (1 << _QS_BITS) or self.want_ref_coords
-        )
-        order, lanes, _ = self._lanes(tasks[0], chunk, c_starts, c_lens,
-                                      width, host_tail_ok=False)
-        sel, c_starts, c_lens = sel[order], c_starts[order], c_lens[order]
         tail_max = _scalar_tail_max() if key[0] == "cls" else 0
-        return sel, self._launch_lanes(tasks, chunk, c_starts, c_lens, lanes,
-                                       width, wide, tail_max)
+        staged = self._stage(tasks, chunk, starts, lens, width,
+                             host_tail_ok=False, tail_max=tail_max)
+        return staged.sel, self._launch_staged(tasks, chunk, staged)
 
-    def _lanes(self, task, chunk, c_starts, c_lens, width, host_tail_ok):
-        """The kernel lanes of ``task``'s candidates: (order, lanes,
-        host_tail). ``lanes`` is [(count, pack2)] over the candidates
-        permuted by ``order``; the last ``host_tail`` of them go to the
-        C++ scalar aligner. A byte-lane task sends every candidate to the
-        byte lane. With the 2-bit lane on, ACGT-class-only windows ride
-        the 2-bit encoding and come first; the rare N/IUPAC-containing
+    def _stage(self, tasks, chunk, starts, lens, width, host_tail_ok,
+               tail_max) -> "StagedPass":
+        """Submit's staged pass (:mod:`staging`) for ``tasks`` over the
+        windows (starts, lens): the candidates and their lanes
+        (:func:`staging.select`, with the first task's LUT and
+        orientation); the lanes cut into ``_dp_sizes`` batches, a lane
+        remainder of at most ``tail_max`` rows after its full batches
+        left to the C++ scalar aligner instead of a padded batch; every
+        batch encoded into a slot of the engine's arena
+        (:func:`staging.encode`).
+
+        The lanes: a byte-lane task sends every candidate to the byte
+        lane. With the 2-bit lane on, ACGT-class-only windows ride the
+        2-bit encoding and come first; the rare N/IUPAC-containing
         windows take the 4-bit lane, or, when few and ``host_tail_ok``,
         the scalar aligner (zero wire). In exact-wire mode each lane is
         length-sorted (descending), so the batches after the first get
         progressively narrower widths."""
-        span = tracing.begin("encode")
+        span = tracing.begin("stage", cpu=True)
         try:
-            return self._lane_order(task, chunk, c_starts, c_lens, width,
-                                    host_tail_ok)
+            task = tasks[0]
+            clean = not task.byte and native.AVAILABLE and _pack2_on()
+            exact = _exact_wire_on(self.device)
+            sel, c_starts, c_lens, (n_clean, n_other, tail, longest) = (
+                staging.select(chunk.buf, starts, lens,
+                               self._prefilter(tasks),
+                               task.lut if clean else None, task.reverse,
+                               width, host_tail_ok, exact))
+            staged = StagedPass(sel, c_starts, c_lens)
+            n = len(sel)
+            if n == 0:
+                return staged
+            if not clean:
+                lanes = [(n, None if task.byte else False)]
+            elif n_other == 0:
+                lanes = [(n, True)]
+            elif n_clean == 0:
+                lanes = [(n, False)]
+            elif tail:
+                lanes = [(n_clean, True)]
+                staged.host_tail = n_other
+            else:
+                lanes = [(n_clean, True), (n_other, False)]
+            staged.lanes = lanes
+            # windows of 2**14 bp or more overflow the packed 14-bit
+            # coordinates, and adapter-side coordinates ride only the
+            # wide result: take it (JAX batch_pipeline.py:1416-1420)
+            staged.wide = longest >= (1 << _QS_BITS) or self.want_ref_coords
+            batches, staged.tails = self._batch_layout(lanes, c_lens, width,
+                                                       tail_max, exact)
+            if batches:
+                rows, nbytes = staging.layout(batches, staged.wide, exact)
+                staged.slot = self._arena.take(nbytes)
+                views = staging.encode(chunk.buf, c_starts, c_lens, rows,
+                                       task.lut, task.reverse,
+                                       staged.slot.array)
+                staged.batches = [(row0, take, p2, enc, lengths)
+                                  for (row0, take, _, _, p2), (enc, lengths)
+                                  in zip(batches, views)]
+            return staged
         finally:
             tracing.end(span)
 
-    def _lane_order(self, task, chunk, c_starts, c_lens, width,
-                    host_tail_ok):
-        n = len(c_starts)
-        order = np.arange(n)
-        lanes = [(n, None if task.byte else False)]
-        host_tail = 0
-        if not task.byte and native.AVAILABLE and _pack2_on():
-            clean = native.windows_clean(
-                chunk.buf, c_starts, c_lens, width, task.lut,
-                reverse=task.reverse,
-            )
-            n_clean = int(clean.sum())
-            n_dirty = n - n_clean
-            if n_dirty == 0:
-                lanes = [(n, True)]
-            elif n_clean > 0:
-                order = np.concatenate(
-                    [np.flatnonzero(clean), np.flatnonzero(~clean)]
-                )
-                if host_tail_ok and n_dirty <= max(64, n >> 6):
-                    lanes = [(n_clean, True)]
-                    host_tail = n_dirty
-                else:
-                    lanes = [(n_clean, True), (n_dirty, False)]
-        if _exact_wire_on(self.device) and n > 1:
-            o_lens = c_lens[order]
-            parts, seg_base = [], 0
-            for count, _p2 in lanes:
-                seg = np.arange(seg_base, seg_base + count)
-                parts.append(seg[np.argsort(-o_lens[seg], kind="stable")])
-                seg_base += count
-            if seg_base < n:  # host-scalar tail, order kept
-                parts.append(np.arange(seg_base, n))
-            order = order[np.concatenate(parts)]
-        return order, lanes, host_tail
-
-    def _launch_lanes(self, tasks, chunk, c_starts, c_lens, lanes, width,
-                      wide, tail_max):
-        """Encode (with the first task's LUT and orientation), upload and
-        launch the candidates lane by lane in ``_dp_sizes`` batches, each
-        batch once for all ``tasks``; a lane remainder of at most
-        ``tail_max`` rows after its full batches goes to each task's C++
-        scalar aligner instead of a padded batch. Returns one futures
-        list per task."""
-        futures = [[] for _ in tasks]
-        exact = _exact_wire_on(self.device)
+    def _batch_layout(self, lanes, c_lens, width, tail_max, exact):
+        """The dispatch batches of ``lanes`` over the ordered candidates,
+        (first row, rows taken, size, row width, pack2) each, and each
+        lane's scalar-aligner remainder, (first row, end). In exact-wire
+        mode a batch's row width is its first (longest) window's length
+        rounded to the packing step, else the stage's ``width``."""
+        batches, tails = [], []
         base = 0
         for count, p2 in lanes:
             dev_count = count
@@ -1366,43 +1342,68 @@ class BatchPipelineEngine:
                 take = min(size, dev_count - off)
                 if take <= 0:
                     break
-                rows = slice(base + off, base + off + take)
-                if exact:
-                    b_w = _eff_width(int(c_lens[rows].max()), width, p2)
-                else:
-                    b_w = width
-                enc = self._encode(
-                    tasks[0], chunk, c_starts, c_lens,
-                    np.arange(rows.start, rows.stop, dtype=np.int64),
-                    size, b_w, pack2=p2,
-                )
-                sub_len = self._host_tensor(_wire_lengths(
-                    c_lens[rows], size, wide, width=b_w if exact else None,
-                ))
-                _xfer_add(
-                    h2d=enc.numel() + sub_len.numel() * sub_len.element_size(),
-                    candidates=take, dp_rows=size * len(tasks),
-                )
+                row0 = base + off
+                b_w = (_eff_width(int(c_lens[row0]), width, p2) if exact
+                       else width)
+                batches.append((row0, take, size, b_w, p2))
+                off += size
+            if dev_count < count:
+                tails.append((base + dev_count, base + count))
+            base += count
+        return batches, tails
+
+    def _record_uploads(self):
+        """An event after the work queued so far on the current stream of
+        each device the engine uploads to (the mesh's, or its own); None
+        on the CPU, where a launch has read its inputs when it returns."""
+        if not self._pinned:
+            return None
+        mesh = _ACTIVE_MESH
+        devices = (dict.fromkeys(mesh.devices)
+                   if mesh is not None and mesh.size > 1 else [self.device])
+        events = []
+        for d in devices:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(d))
+            events.append(event)
+        return events[0] if len(events) == 1 else _Events(events)
+
+    def _launch_staged(self, tasks, chunk, staged) -> list:
+        """Upload and launch each batch of ``staged`` once for all
+        ``tasks``, in order, then release its slot; then each lane's
+        scalar-aligner remainder per task. Returns one futures list per
+        task."""
+        futures = [[] for _ in tasks]
+        h2d = rows = dp_rows = 0
+        try:
+            for row0, take, p2, enc, sub_len in staged.batches:
+                h2d += enc.numel() + sub_len.numel() * sub_len.element_size()
+                rows += take
+                dp_rows += len(sub_len) * len(tasks)
                 span = tracing.begin("launch")
                 try:
                     results = launch_batch(tasks, enc, sub_len, self.device,
-                                           p2, wide)
+                                           p2, staged.wide)
                     for fut in results:
                         fut.copy_to_host_async()
                 finally:
                     tracing.end(span)
                 for futs, fut in zip(futures, results):
-                    futs.append((rows.start, take, fut, wide))
-                off += size
-            if dev_count < count:
-                s0, s1 = base + dev_count, base + count
-                _xfer_add(candidates=count - dev_count)
-                for t, futs in zip(tasks, futures):
-                    futs.append(
-                        ("host_range", s0)
-                        + t.run_scalar(chunk, c_starts[s0:s1], c_lens[s0:s1])
-                    )
-            base += count
+                    futs.append((row0, take, fut, staged.wide))
+        finally:
+            if staged.slot is not None:
+                staged.batches = None  # the views die with the pass
+                self._arena.release(staged.slot, self._record_uploads())
+                staged.slot = None
+        for s0, s1 in staged.tails:
+            rows += s1 - s0
+            for t, futs in zip(tasks, futures):
+                futs.append(
+                    ("host_range", s0)
+                    + t.run_scalar(chunk, staged.c_starts[s0:s1],
+                                   staged.c_lens[s0:s1])
+                )
+        _xfer_add(h2d=h2d, candidates=rows, dp_rows=dp_rows, staged=rows)
         return futures
 
     def _fetch_task(self, n_cand, futures):

@@ -91,9 +91,15 @@ def _load():
     lib.pad_encode_pack2.argtypes = [
         p_u8, p_i64, p_i32, p_i64, i64, i64, p_u8, _i32, p_u8,
     ]
-    lib.windows_clean.restype = None
-    lib.windows_clean.argtypes = [
-        p_u8, p_i64, p_i32, i64, i64, p_u8, _i32, p_u8,
+    lib.stage_select.restype = i64
+    lib.stage_select.argtypes = [
+        p_u8, p_i64, p_i32, i64, i64, p_i64, p_i32, p_i64, p_i64, p_u64,
+        p_u64, p_u64, p_u8, _i32, i64, _i32, _i32, p_i64, p_i64, p_i32,
+        p_i64,
+    ]
+    lib.stage_encode.restype = None
+    lib.stage_encode.argtypes = [
+        p_u8, p_i64, p_i32, i64, p_i64, p_u8, _i32, p_u8,
     ]
     lib.assemble_fastq.restype = i64
     lib.assemble_fastq.argtypes = [
@@ -309,6 +315,85 @@ class PrefilterTables:
         self.masks = masks
 
 
+class PrefilterSet:
+    """The prefilter tables of several tasks as one set of flat arrays
+    for :func:`stage_select`: the entries of task t are rows
+    ``task_entries[t]`` to ``task_entries[t + 1]``, scanned back to front
+    where ``task_reverse[t]``; a window passes if any task's scan hits.
+    The ctypes pointers are made once, here."""
+
+    __slots__ = ("n_tasks", "_arrays", "_args")
+
+    def __init__(self, tables: "list[PrefilterTables]", reverse: "list[bool]"):
+        self.n_tasks = len(tables)
+        entries = np.zeros(self.n_tasks + 1, np.int64)
+        entries[1:] = np.cumsum([t.n_entries for t in tables])
+        rev = np.array([int(r) for r in reverse], np.int32)
+        cat = [np.concatenate([getattr(t, k)[: t.n_entries] for t in tables]
+                              or [np.zeros(0, dt)]).astype(dt)
+               for k, dt in (("starts", np.int64), ("stops", np.int64),
+                             ("init_masks", np.uint64),
+                             ("found_masks", np.uint64))]
+        masks = np.zeros((max(int(entries[-1]), 1), 128), np.uint64)
+        for t, e0 in zip(tables, entries):
+            masks[e0 : e0 + t.n_entries] = t.masks[: t.n_entries]
+        self._arrays = (entries, rev, *cat, masks)  # alive while pointed to
+        self._args = (
+            self.n_tasks, _ptr(entries, ctypes.c_int64),
+            _ptr(rev, ctypes.c_int32), _ptr(cat[0], ctypes.c_int64),
+            _ptr(cat[1], ctypes.c_int64), _ptr(cat[2], ctypes.c_uint64),
+            _ptr(cat[3], ctypes.c_uint64), _ptr(masks, ctypes.c_uint64),
+        )
+
+
+def stage_select(buf, starts, lens, prefilter, clean_lut, clean_reverse,
+                 width: int, host_tail_ok: bool, sort_desc: bool):
+    """The candidates of one dispatch, split into lanes and ordered (one
+    C++ call, hostops.cpp:stage_select): the windows (``starts`` int64,
+    ``lens`` int32) that pass ``prefilter`` (a :class:`PrefilterSet`, or
+    None for every window); with ``clean_lut``, the 2-bit-clean ones
+    first, the others after them or, where ``host_tail_ok`` and few, a
+    host tail; with ``sort_desc`` each lane longest first. Returns
+    (positions into the windows, their starts, their lengths, (clean
+    rows, other rows, other rows are a host tail, longest length))."""
+    starts = np.ascontiguousarray(starts, np.int64)
+    lens = np.ascontiguousarray(lens, np.int32)
+    n = len(starts)
+    if len(lens) != n:
+        raise ValueError("starts and lens differ in length")
+    sel = np.empty(n, np.int64)
+    c_starts = np.empty(n, np.int64)
+    c_lens = np.empty(n, np.int32)
+    counts = np.zeros(4, np.int64)
+    pf = prefilter._args if prefilter is not None else (
+        0, None, None, None, None, None, None, None)
+    lut = (None if clean_lut is None
+           else _ptr(np.ascontiguousarray(clean_lut, np.uint8),
+                     ctypes.c_uint8))
+    n_sel = _lib.stage_select(
+        _ptr(buf, ctypes.c_uint8), _ptr(starts, ctypes.c_int64),
+        _ptr(lens, ctypes.c_int32), n, *pf, lut, int(clean_reverse), width,
+        int(host_tail_ok), int(sort_desc), _ptr(sel, ctypes.c_int64),
+        _ptr(c_starts, ctypes.c_int64), _ptr(c_lens, ctypes.c_int32),
+        _ptr(counts, ctypes.c_int64),
+    )
+    return (sel[:n_sel], c_starts[:n_sel], c_lens[:n_sel],
+            tuple(int(c) for c in counts))
+
+
+def stage_encode(buf, c_starts, c_lens, layout: np.ndarray, lut,
+                 reverse: bool, arena: np.ndarray) -> None:
+    """Every dispatch batch of ``layout`` (rows of 8 int64, as
+    hostops.cpp:stage_encode reads them) into the uint8 ``arena``, in
+    one C++ call. The caller checks that every offset fits."""
+    _lib.stage_encode(
+        _ptr(buf, ctypes.c_uint8), _ptr(c_starts, ctypes.c_int64),
+        _ptr(c_lens, ctypes.c_int32), len(layout),
+        _ptr(layout, ctypes.c_int64), _ptr(lut, ctypes.c_uint8),
+        int(reverse), _ptr(arena, ctypes.c_uint8),
+    )
+
+
 def kmer_prefilter(
     buf: np.ndarray, seq_start: np.ndarray, seq_len: np.ndarray,
     tables: PrefilterTables, reverse: bool = False,
@@ -338,7 +423,7 @@ def pad_encode(
     """Gather+encode selected reads into a padded row matrix
     (back-to-front when ``reverse``). pack4 packs two 4-bit codes per
     byte; pack2 packs four 2-bit codes per byte (callers must route
-    windows containing class ids > 3 elsewhere — see windows_clean).
+    windows containing class ids > 3 elsewhere: stage_select's lanes).
 
     When ``out`` is given it may have more rows than len(sel); only the
     first len(sel) rows are written (extra rows serve as batch padding
@@ -367,24 +452,6 @@ def pad_encode(
         _ptr(lut, ctypes.c_uint8), int(reverse), _ptr(out, ctypes.c_uint8),
     )
     return out
-
-
-def windows_clean(
-    buf, seq_start, seq_len, width: int, lut, reverse: bool = False
-) -> np.ndarray:
-    """Per-window bool: every byte the encode would emit maps to a
-    class id < 4 under `lut`, i.e. the window can ride the 2-bit
-    packed lane."""
-    n = len(seq_start)
-    lut = np.ascontiguousarray(lut, np.uint8)
-    out = np.empty(n, np.uint8)
-    _lib.windows_clean(
-        _ptr(buf, ctypes.c_uint8),
-        _ptr(seq_start, ctypes.c_int64), _ptr(seq_len, ctypes.c_int32),
-        n, width, _ptr(lut, ctypes.c_uint8), int(reverse),
-        _ptr(out, ctypes.c_uint8),
-    )
-    return out.astype(bool)
 
 
 def check_pair_names(buf1, hs1, he1, buf2, hs2, he2) -> int:

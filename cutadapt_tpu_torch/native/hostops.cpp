@@ -15,6 +15,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 extern "C" {
 
@@ -81,173 +82,356 @@ int64_t fastq_parse(const uint8_t* buf, int64_t n, int64_t n_records,
 
 // `reverse` scans each sequence back-to-front (for rightmost adapter
 // variants, whose k-mer sets are built against the reversed read).
+static inline uint8_t kmers_hit(const uint8_t* seq, int64_t len,
+                                int64_t n_entries, const int64_t* starts,
+                                const int64_t* stops,
+                                const uint64_t* init_masks,
+                                const uint64_t* found_masks,
+                                const uint64_t* masks, int32_t reverse) {
+    uint8_t hit = 0;
+    for (int64_t e = 0; e < n_entries && !hit; ++e) {
+        int64_t start = starts[e];
+        int64_t stop = stops[e];
+        if (start < 0) {
+            start += len;
+            if (start < 0) start = 0;
+        } else if (start > len) {
+            continue;
+        }
+        if (stop < 0) {
+            stop += len;
+            if (stop <= 0) continue;
+        } else if (stop == 0) {
+            stop = len;
+        }
+        if (stop > len) stop = len;
+        if (stop - start <= 0) continue;
+        const uint64_t init = init_masks[e];
+        const uint64_t found = found_masks[e];
+        const uint64_t* mask = masks + e * 128;
+        uint64_t rreg = 0;
+        for (int64_t i = start; i < stop; ++i) {
+            const uint8_t c = reverse ? seq[len - 1 - i] : seq[i];
+            rreg = ((rreg << 1) | init) & (c < 128 ? mask[c] : 0);
+            if (rreg & found) {
+                hit = 1;
+                break;
+            }
+        }
+    }
+    return hit;
+}
+
 void kmer_prefilter(const uint8_t* buf, const int64_t* seq_start,
                     const int32_t* seq_len, int64_t n_records,
                     int64_t n_entries, const int64_t* starts,
                     const int64_t* stops, const uint64_t* init_masks,
                     const uint64_t* found_masks, const uint64_t* masks,
                     int32_t reverse, uint8_t* out_mask) {
-    for (int64_t r = 0; r < n_records; ++r) {
-        const uint8_t* seq = buf + seq_start[r];
-        const int64_t len = seq_len[r];
-        uint8_t hit = 0;
-        for (int64_t e = 0; e < n_entries && !hit; ++e) {
-            int64_t start = starts[e];
-            int64_t stop = stops[e];
-            if (start < 0) {
-                start += len;
-                if (start < 0) start = 0;
-            } else if (start > len) {
-                continue;
-            }
-            if (stop < 0) {
-                stop += len;
-                if (stop <= 0) continue;
-            } else if (stop == 0) {
-                stop = len;
-            }
-            if (stop > len) stop = len;
-            if (stop - start <= 0) continue;
-            const uint64_t init = init_masks[e];
-            const uint64_t found = found_masks[e];
-            const uint64_t* mask = masks + e * 128;
-            uint64_t rreg = 0;
-            for (int64_t i = start; i < stop; ++i) {
-                const uint8_t c = reverse ? seq[len - 1 - i] : seq[i];
-                rreg = ((rreg << 1) | init) & (c < 128 ? mask[c] : 0);
-                if (rreg & found) {
-                    hit = 1;
-                    break;
-                }
-            }
-        }
-        out_mask[r] = hit;
-    }
+    for (int64_t r = 0; r < n_records; ++r)
+        out_mask[r] = kmers_hit(buf + seq_start[r], seq_len[r], n_entries,
+                                starts, stops, init_masks, found_masks,
+                                masks, reverse);
 }
 
 // --- candidate gather + encode ---------------------------------------------
 //
-// Gathers selected reads into a padded (n_sel, width) matrix,
-// translating each byte through a 256-entry LUT; pad positions are 0.
+// One window of n bytes at src into a row of `width` bases (the first
+// `width` bases, or the last `width` back-to-front when `reverse`),
+// translated through a 256-entry LUT; pad positions are 0.
 
-// `reverse` emits each selected read back-to-front.
+static inline void encode_row(const uint8_t* src, int64_t n, int64_t width,
+                              const uint8_t* lut, int32_t reverse,
+                              uint8_t* dst) {
+    int64_t len = n < width ? n : width;
+    if (reverse) {
+        for (int64_t t = 0; t < len; ++t) dst[t] = lut[src[n - 1 - t]];
+    } else {
+        for (int64_t t = 0; t < len; ++t) dst[t] = lut[src[t]];
+    }
+    if (len < width) memset(dst + len, 0, width - len);
+}
+
+// Same, two 4-bit codes per output byte (lo nibble first): byte t holds
+// code[2t] | code[2t+1] << 4; the row is width/2 bytes.  LUT values
+// must be < 16.
+static inline void encode_row_pack4(const uint8_t* src, int64_t n,
+                                    int64_t width, const uint8_t* lut,
+                                    int32_t reverse, uint8_t* dst) {
+    const int64_t wp = width / 2;
+    int64_t len = n < width ? n : width;
+    int64_t pairs = len / 2;
+    if (reverse) {
+        for (int64_t t = 0; t < pairs; ++t)
+            dst[t] = (uint8_t)(lut[src[n - 1 - 2 * t]] |
+                               (lut[src[n - 2 - 2 * t]] << 4));
+        if (len & 1) dst[pairs] = lut[src[n - len]];
+    } else {
+        for (int64_t t = 0; t < pairs; ++t)
+            dst[t] = (uint8_t)(lut[src[2 * t]] | (lut[src[2 * t + 1]] << 4));
+        if (len & 1) dst[pairs] = lut[src[len - 1]];
+    }
+    int64_t used = (len + 1) / 2;
+    if (used < wp) memset(dst + used, 0, wp - used);
+}
+
+// Same, four 2-bit codes per output byte (lowest pair = earliest
+// position); the row is width/4 bytes.  LUT values must be < 4:
+// callers split off dirty windows first (window_clean).
+static inline void encode_row_pack2(const uint8_t* src, int64_t n,
+                                    int64_t width, const uint8_t* lut,
+                                    int32_t reverse, uint8_t* dst) {
+    const int64_t wp = width / 4;
+    int64_t len = n < width ? n : width;
+    int64_t quads = len / 4;
+    if (reverse) {
+        const uint8_t* end = src + n;  // read back-to-front
+        for (int64_t t = 0; t < quads; ++t) {
+            const uint8_t* p = end - 4 * t;
+            dst[t] = (uint8_t)(lut[p[-1]] | (lut[p[-2]] << 2) |
+                               (lut[p[-3]] << 4) | (lut[p[-4]] << 6));
+        }
+        uint8_t tail = 0;
+        for (int64_t t = 4 * quads; t < len; ++t)
+            tail |= (uint8_t)(lut[end[-1 - t]] << (2 * (t & 3)));
+        if (len & 3) dst[quads] = tail;
+    } else {
+        for (int64_t t = 0; t < quads; ++t) {
+            const uint8_t* p = src + 4 * t;
+            dst[t] = (uint8_t)(lut[p[0]] | (lut[p[1]] << 2) |
+                               (lut[p[2]] << 4) | (lut[p[3]] << 6));
+        }
+        uint8_t tail = 0;
+        for (int64_t t = 4 * quads; t < len; ++t)
+            tail |= (uint8_t)(lut[src[t]] << (2 * (t & 3)));
+        if (len & 3) dst[quads] = tail;
+    }
+    int64_t used = (len + 3) / 4;
+    if (used < wp) memset(dst + used, 0, wp - used);
+}
+
+// Gathers selected reads into a padded (n_sel, width) matrix of LUT
+// codes (back-to-front when `reverse`).
 void pad_encode(const uint8_t* buf, const int64_t* seq_start,
                 const int32_t* seq_len, const int64_t* sel, int64_t n_sel,
                 int64_t width, const uint8_t* lut, int32_t reverse,
                 uint8_t* out) {
     for (int64_t i = 0; i < n_sel; ++i) {
         const int64_t r = sel[i];
-        const int64_t full = seq_len[r];
-        const uint8_t* src = buf + seq_start[r];
-        int64_t len = full;
-        if (len > width) len = width;
-        uint8_t* dst = out + i * width;
-        if (reverse) {
-            for (int64_t t = 0; t < len; ++t)
-                dst[t] = lut[src[full - 1 - t]];
-        } else {
-            for (int64_t t = 0; t < len; ++t) dst[t] = lut[src[t]];
-        }
-        if (len < width) memset(dst + len, 0, width - len);
+        encode_row(buf + seq_start[r], seq_len[r], width, lut, reverse,
+                   out + i * width);
     }
 }
 
-// Same, but packs two 4-bit codes per output byte (lo nibble first):
-// out byte t holds code[2t] | code[2t+1] << 4.  width must be even;
-// out is (n_sel, width/2).  LUT values must be < 16.
-
+// Same, (n_sel, width/2) bytes of packed 4-bit codes; width even.
 void pad_encode_pack4(const uint8_t* buf, const int64_t* seq_start,
                       const int32_t* seq_len, const int64_t* sel,
                       int64_t n_sel, int64_t width, const uint8_t* lut,
                       int32_t reverse, uint8_t* out) {
-    const int64_t wp = width / 2;
     for (int64_t i = 0; i < n_sel; ++i) {
         const int64_t r = sel[i];
-        const int64_t n = seq_len[r];
-        const uint8_t* src = buf + seq_start[r];
-        int64_t len = n;
-        if (len > width) len = width;
-        uint8_t* dst = out + i * wp;
-        int64_t pairs = len / 2;
-        if (reverse) {
-            for (int64_t t = 0; t < pairs; ++t)
-                dst[t] = (uint8_t)(lut[src[n - 1 - 2 * t]] |
-                                   (lut[src[n - 2 - 2 * t]] << 4));
-            if (len & 1) dst[pairs] = lut[src[n - len]];
-        } else {
-            for (int64_t t = 0; t < pairs; ++t)
-                dst[t] = (uint8_t)(lut[src[2 * t]] |
-                                   (lut[src[2 * t + 1]] << 4));
-            if (len & 1) dst[pairs] = lut[src[len - 1]];
-        }
-        int64_t used = (len + 1) / 2;
-        if (used < wp) memset(dst + used, 0, wp - used);
+        encode_row_pack4(buf + seq_start[r], seq_len[r], width, lut, reverse,
+                         out + i * (width / 2));
     }
 }
 
-// Same, but packs four 2-bit codes per output byte (lowest pair =
-// earliest position).  width must be a multiple of 4; out is
-// (n_sel, width/4).  LUT values of selected reads must be < 4 —
-// callers split off dirty reads with windows_clean first.
-
+// Same, (n_sel, width/4) bytes of packed 2-bit codes; width a multiple
+// of 4.
 void pad_encode_pack2(const uint8_t* buf, const int64_t* seq_start,
                       const int32_t* seq_len, const int64_t* sel,
                       int64_t n_sel, int64_t width, const uint8_t* lut,
                       int32_t reverse, uint8_t* out) {
-    const int64_t wp = width / 4;
     for (int64_t i = 0; i < n_sel; ++i) {
         const int64_t r = sel[i];
-        const int64_t n = seq_len[r];
-        const uint8_t* src = buf + seq_start[r];
-        int64_t len = n;
-        if (len > width) len = width;
-        uint8_t* dst = out + i * wp;
-        int64_t quads = len / 4;
-        if (reverse) {
-            const uint8_t* end = src + n;  // read back-to-front
-            for (int64_t t = 0; t < quads; ++t) {
-                const uint8_t* p = end - 4 * t;
-                dst[t] = (uint8_t)(lut[p[-1]] | (lut[p[-2]] << 2) |
-                                   (lut[p[-3]] << 4) | (lut[p[-4]] << 6));
-            }
-            uint8_t tail = 0;
-            for (int64_t t = 4 * quads; t < len; ++t)
-                tail |= (uint8_t)(lut[end[-1 - t]] << (2 * (t & 3)));
-            if (len & 3) dst[quads] = tail;
-        } else {
-            for (int64_t t = 0; t < quads; ++t) {
-                const uint8_t* p = src + 4 * t;
-                dst[t] = (uint8_t)(lut[p[0]] | (lut[p[1]] << 2) |
-                                   (lut[p[2]] << 4) | (lut[p[3]] << 6));
-            }
-            uint8_t tail = 0;
-            for (int64_t t = 4 * quads; t < len; ++t)
-                tail |= (uint8_t)(lut[src[t]] << (2 * (t & 3)));
-            if (len & 3) dst[quads] = tail;
-        }
-        int64_t used = (len + 3) / 4;
-        if (used < wp) memset(dst + used, 0, wp - used);
+        encode_row_pack2(buf + seq_start[r], seq_len[r], width, lut, reverse,
+                         out + i * (width / 4));
     }
 }
 
-// Per-window "2-bit clean" test: out[i] = 1 iff every byte of window
-// i maps to a class id < 4 under `lut` (i.e. the window can ride the
-// 2-bit packed lane).  Only the `width` bytes the encode would emit
-// matter (the first `width` forward, the last `width` reversed).
-void windows_clean(const uint8_t* buf, const int64_t* seq_start,
-                   const int32_t* seq_len, int64_t n, int64_t width,
-                   const uint8_t* lut, int32_t reverse, uint8_t* out) {
-    for (int64_t i = 0; i < n; ++i) {
-        int64_t len = seq_len[i];
-        int64_t off = 0;
-        if (len > width) {
-            if (reverse) off = len - width;
-            len = width;
+// The "2-bit clean" test of one window: every byte the encode would
+// emit (the first `width` forward, the last `width` reversed) maps to a
+// class id < 4 under `lut`, so the window can ride the 2-bit lane.
+static inline bool window_clean(const uint8_t* src, int64_t len,
+                                int64_t width, const uint8_t* lut,
+                                int32_t reverse) {
+    if (len > width) {
+        if (reverse) src += len - width;
+        len = width;
+    }
+    uint8_t dirty = 0;
+    for (int64_t t = 0; t < len; ++t) dirty |= (uint8_t)(lut[src[t]] >> 2);
+    return dirty == 0;
+}
+
+// --- submit's staged pass ----------------------------------------------------
+//
+// Two calls per dispatch of a task or upload group, each one run of C++
+// with the GIL released (ctypes): stage_select picks and orders the
+// candidates, stage_encode writes every dispatch batch of them into the
+// engine's staging arena.
+
+// Stable order of rows [a, b) by length, longest first (a counting sort
+// over the segment's range of lengths), applied to sel, starts, lens.
+static void sort_desc_by_length(int64_t a, int64_t b, int64_t* sel,
+                                int64_t* starts, int32_t* lens) {
+    if (b - a < 2) return;
+    int32_t lo = lens[a], hi = lens[a];
+    for (int64_t i = a + 1; i < b; ++i) {
+        if (lens[i] < lo) lo = lens[i];
+        if (lens[i] > hi) hi = lens[i];
+    }
+    if (lo == hi) return;
+    std::vector<int64_t> pos((size_t)(hi - lo) + 1, 0);
+    for (int64_t i = a; i < b; ++i) ++pos[(size_t)(hi - lens[i])];
+    int64_t acc = 0;
+    for (auto& p : pos) {
+        const int64_t c = p;
+        p = acc;
+        acc += c;
+    }
+    const int64_t n = b - a;
+    std::vector<int64_t> s_sel(n), s_starts(n);
+    std::vector<int32_t> s_lens(n);
+    for (int64_t i = a; i < b; ++i) {
+        const int64_t j = pos[(size_t)(hi - lens[i])]++;
+        s_sel[j] = sel[i];
+        s_starts[j] = starts[i];
+        s_lens[j] = lens[i];
+    }
+    memcpy(sel + a, s_sel.data(), n * sizeof(int64_t));
+    memcpy(starts + a, s_starts.data(), n * sizeof(int64_t));
+    memcpy(lens + a, s_lens.data(), n * sizeof(int32_t));
+}
+
+// The candidates of one dispatch over n windows (starts, lens), split
+// into lanes and ordered:
+// - candidates: the windows that pass the k-mer prefilter of any of
+//   n_tasks tasks (kmers_hit; task t's entries are rows
+//   task_entries[t] .. task_entries[t + 1] of the concatenated tables,
+//   scanned back to front where task_reverse[t]); every window when
+//   n_tasks is 0;
+// - lanes: with clean_lut, the 2-bit-clean windows (window_clean over
+//   `width`, back to front where clean_reverse) come first and the
+//   others after them, where both kinds are present; the others are a
+//   host tail, left in their order, where host_tail_ok and they number
+//   at most max(64, n_sel >> 6);
+// - with sort_desc, each lane (not the host tail) ordered by length,
+//   longest first, stably.
+// Writes the candidates' positions into the windows, their starts and
+// their lengths in that order, and counts = {clean rows (0 without
+// clean_lut), other rows, 1 if the other rows are a host tail, the
+// longest length}.  Returns the number of candidates.
+int64_t stage_select(const uint8_t* buf, const int64_t* starts,
+                     const int32_t* lens, int64_t n, int64_t n_tasks,
+                     const int64_t* task_entries,
+                     const int32_t* task_reverse, const int64_t* e_starts,
+                     const int64_t* e_stops, const uint64_t* init_masks,
+                     const uint64_t* found_masks, const uint64_t* masks,
+                     const uint8_t* clean_lut, int32_t clean_reverse,
+                     int64_t width, int32_t host_tail_ok, int32_t sort_desc,
+                     int64_t* out_sel, int64_t* out_starts,
+                     int32_t* out_lens, int64_t* counts) {
+    int64_t n_sel = 0;
+    for (int64_t r = 0; r < n; ++r) {
+        uint8_t hit = n_tasks == 0;
+        for (int64_t t = 0; t < n_tasks && !hit; ++t) {
+            const int64_t e0 = task_entries[t];
+            hit = kmers_hit(buf + starts[r], lens[r],
+                            task_entries[t + 1] - e0, e_starts + e0,
+                            e_stops + e0, init_masks + e0, found_masks + e0,
+                            masks + e0 * 128, task_reverse[t]);
         }
-        const uint8_t* src = buf + seq_start[i] + off;
-        uint8_t dirty = 0;
-        for (int64_t t = 0; t < len; ++t) dirty |= (uint8_t)(lut[src[t]] >> 2);
-        out[i] = dirty == 0;
+        if (hit) out_sel[n_sel++] = r;
+    }
+    int64_t n_clean = 0, n_other = n_sel, tail = 0;
+    if (clean_lut != nullptr && n_sel > 0) {
+        std::vector<uint8_t> clean(n_sel);
+        for (int64_t i = 0; i < n_sel; ++i) {
+            const int64_t r = out_sel[i];
+            clean[i] = window_clean(buf + starts[r], lens[r], width,
+                                    clean_lut, clean_reverse);
+            n_clean += clean[i];
+        }
+        n_other = n_sel - n_clean;
+        if (n_clean > 0 && n_other > 0) {
+            std::vector<int64_t> rows(out_sel, out_sel + n_sel);
+            int64_t c = 0, d = n_clean;
+            for (int64_t i = 0; i < n_sel; ++i)
+                out_sel[clean[i] ? c++ : d++] = rows[i];
+            const int64_t cap = (n_sel >> 6) > 64 ? (n_sel >> 6) : 64;
+            tail = host_tail_ok && n_other <= cap;
+        }
+    }
+    int32_t longest = 0;
+    for (int64_t i = 0; i < n_sel; ++i) {
+        const int64_t r = out_sel[i];
+        out_starts[i] = starts[r];
+        out_lens[i] = lens[r];
+        if (lens[r] > longest) longest = lens[r];
+    }
+    if (sort_desc) {
+        if (n_clean > 0 && n_other > 0) {
+            sort_desc_by_length(0, n_clean, out_sel, out_starts, out_lens);
+            if (!tail)
+                sort_desc_by_length(n_clean, n_sel, out_sel, out_starts,
+                                    out_lens);
+        } else {
+            sort_desc_by_length(0, n_sel, out_sel, out_starts, out_lens);
+        }
+    }
+    counts[0] = n_clean;
+    counts[1] = n_other;
+    counts[2] = tail;
+    counts[3] = longest;
+    return n_sel;
+}
+
+// Every dispatch batch of one staged pass, written into `arena`.
+// layout holds n_batches rows of 8 int64: the batch's first row in the
+// ordered candidates (c_starts, c_lens), the rows it takes, its size in
+// rows (the rows past those it takes are zero), its row width in bases,
+// its packing (2: four 2-bit codes a byte, 1: two 4-bit codes, 0: one
+// code a base), the bytes of one wire length (1, 2 or 4: uint8, int16
+// or int32), and the byte offsets in the arena of its rows and of its
+// lengths (zero past the rows it takes).
+void stage_encode(const uint8_t* buf, const int64_t* c_starts,
+                  const int32_t* c_lens, int64_t n_batches,
+                  const int64_t* layout, const uint8_t* lut, int32_t reverse,
+                  uint8_t* arena) {
+    for (int64_t b = 0; b < n_batches; ++b) {
+        const int64_t* L = layout + 8 * b;
+        const int64_t row0 = L[0], take = L[1], size = L[2], width = L[3];
+        const int64_t pack = L[4], nb = L[5];
+        const int64_t row_bytes =
+            pack == 2 ? width / 4 : (pack == 1 ? width / 2 : width);
+        uint8_t* enc = arena + L[6];
+        for (int64_t i = 0; i < take; ++i) {
+            const int64_t r = row0 + i;
+            uint8_t* dst = enc + i * row_bytes;
+            if (pack == 2)
+                encode_row_pack2(buf + c_starts[r], c_lens[r], width, lut,
+                                 reverse, dst);
+            else if (pack == 1)
+                encode_row_pack4(buf + c_starts[r], c_lens[r], width, lut,
+                                 reverse, dst);
+            else
+                encode_row(buf + c_starts[r], c_lens[r], width, lut, reverse,
+                           dst);
+        }
+        memset(enc + take * row_bytes, 0, (size - take) * row_bytes);
+        uint8_t* lengths = arena + L[7];
+        for (int64_t i = 0; i < take; ++i) {
+            const int32_t v = c_lens[row0 + i];
+            if (nb == 1) {
+                lengths[i] = (uint8_t)v;
+            } else if (nb == 2) {
+                const int16_t h = (int16_t)v;
+                memcpy(lengths + 2 * i, &h, 2);
+            } else {
+                memcpy(lengths + 4 * i, &v, 4);
+            }
+        }
+        memset(lengths + take * nb, 0, (size - take) * nb);
     }
 }
 

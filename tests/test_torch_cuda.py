@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import cutadapt_tpu_torch.batch_pipeline as tbp
+from cutadapt_tpu_torch.io.chunks import parse_fastq_chunk
 from cutadapt_tpu_torch.ops import align_cuda
 
 import torch_fixtures as fx
@@ -250,6 +251,51 @@ def test_engine_on_card_matches_cpu(card):
     for (out, stats), (wout, wstats) in zip(got, want):
         assert out == wout
         assert stats["with_adapters"] == wstats["with_adapters"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["single", "paired"])
+def test_staged_submit_on_card_matches_cpu(card, layout):
+    """Submit's staged pass on the card: eight chunks through the
+    single-end engine, or through both engines of a pair, give the CPU
+    engines' outputs; every candidate goes through the pass
+    (``staged_rows`` equals ``candidates``), and the arenas' pinned
+    allocations all fall in the first chunk."""
+    if layout == "single":
+        sides = [(fx.add_ns(fx.make_dataset(40000, seed=77), 0.05),
+                  fx.ADAPTER)]
+    else:
+        r1, r2 = fx.make_pairs(40000, seed=78)
+        sides = [(r1, fx.ADAPTER), (r2, fx.TRUSEQ_R2)]
+    sizes = dict(min_dp_batch=1024, max_dp_batch=8192)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        engines = [tbp.BatchPipelineEngine(
+            [tbp.AdapterStage([tbp.AdapterTask(
+                fx.BackAdapter(ad, max_errors=0.1, min_overlap=3), "back",
+                0)])], device=device, **sizes) for _, ad in sides]
+        chunks = [fx.split_records(data, 5000)[0] for data, _ in sides]
+        assert all(len(c) == 8 for c in chunks)
+        tbp.reset_xfer_counters()
+        allocs, out, pending = [], [], None
+        for i in range(8):
+            nxt = [e.submit(parse_fastq_chunk(c[i]))
+                   for e, c in zip(engines, chunks)]
+            allocs.append(tbp.XFER["pinned_allocs"])
+            if pending is not None:
+                out.append([e.collect(p)[:3] for e, p in zip(engines,
+                                                             pending)])
+            pending = nxt
+        out.append([e.collect(p)[:3] for e, p in zip(engines, pending)])
+        xfer = tbp.xfer_counters()
+        assert xfer["candidates"] > 0
+        assert xfer["staged_rows"] == xfer["candidates"]
+        assert allocs[0] > 0 and allocs == allocs[:1] * 8, allocs
+        outs[device] = out
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
 
 
 def _engine_on_card_and_cpu(stages_fn, filters, data, records=1000):

@@ -47,10 +47,9 @@ def test_profile_batch_splits_submit():
     assert set(out["stage_ms"]) == {"parse", "submit", "collect", "assemble"}
     # submit split by the port's spans
     split = out["submit_split_ms"]
-    assert set(split) == {"host_stages", "prefilter", "encode", "launch",
-                          "rest"}
-    assert split["launch"] > 0 and split["prefilter"] > 0
-    assert split["encode"] > 0 and split["host_stages"] == 0
+    assert set(split) == {"host_stages", "stage", "launch", "rest"}
+    assert split["launch"] > 0 and split["stage"] > 0
+    assert split["host_stages"] == 0
     # the parts sum to submit's time
     assert sum(split.values()) == pytest.approx(out["stage_ms"]["submit"])
     # collect's wait on the card: none on the CPU
@@ -161,7 +160,7 @@ def _made_up_call():
         _span(8, "queue.parsed", "reader", 400, 600, chunk=1),
         _span(9, "wait.parsed", "submit", 215, 320, parent=2, chunk=0),
         _span(10, "submit", "submit", 320, 600, parent=2, chunk=0, cpu=100),
-        _span(11, "prefilter", "submit", 330, 400, parent=10, chunk=0),
+        _span(11, "stage", "submit", 330, 400, parent=10, chunk=0, cpu=50),
         _span(12, "launch", "submit", 400, 500, parent=10, chunk=0),
         _span(13, "kernel_launch", "submit", 450, 460, parent=12, chunk=0),
         _span(14, "queue.emit", "submit", 600, 610, chunk=0),
@@ -174,6 +173,7 @@ def _made_up_call():
         _span(21, "wait.emit", "emit", 800, 820, chunk=1),
         _span(22, "emit", "emit", 820, 940, chunk=1, cpu=40),
         _span(23, "library", "caller", 110, 150, parent=1),
+        _span(24, "stage.alloc", "submit", 340, 350, parent=11, chunk=0),
     ]
 
 
@@ -183,7 +183,8 @@ def test_trace_cell_readers_on_made_up_spans():
     # the kernel_launch span 450-460 holds its launch record at 455, and
     # the kernel starts at 470
     m = tc.metrics({"port_spans": spans, "reads": 10,
-                    "aligner_launches": [(455, 470)]})
+                    "aligner_launches": [(455, 470)],
+                    "xfer": {"candidates": 8, "staged_rows": 8}})
     assert m["call_prologue_ms"] == 100 / 1e6
     assert m["engine_setup_ms"] == 100 / 1e6
     assert m["call_epilogue_ms"] == 50 / 1e6
@@ -191,7 +192,9 @@ def test_trace_cell_readers_on_made_up_spans():
     assert m["submit_queue_ns_per_read"] == 22
     assert m["submit_starved_ns_per_read"] == 10.5
     assert m["submit_cpu_ns_per_read"] == 25
-    assert m["prefilter_ns_per_read"] == 7
+    assert m["stage_ns_per_read"] == 7
+    assert m["stage_cpu_ns_per_read"] == 5
+    assert m["staged_share"] == 1.0
     assert m["launch_ns_per_read"] == 10
     assert m["emit_queue_ns_per_read"] == 3
     assert m["emit_cpu_ns_per_read"] == 10
@@ -199,9 +202,16 @@ def test_trace_cell_readers_on_made_up_spans():
     assert m["write_ns_per_read"] == 1
     assert m["launch_to_kernel_us"] == 0.02
     # nothing recorded, nothing read
-    for absent in ("host_stages_ns_per_read", "encode_ns_per_read",
-                   "assemble_ns_per_read"):
+    for absent in ("host_stages_ns_per_read", "assemble_ns_per_read"):
         assert absent not in m
+    # the arena allocated in the call's first chunk only; a counter-less
+    # program reads no share
+    assert tc.arena_allocs(spans, {"pinned_allocs": 2}, calls=1) == {
+        "after_first_chunk": 0, "per_call": 2}
+    late = spans + [_span(30, "stage.alloc", "submit", 620, 630, parent=15,
+                          chunk=1)]
+    assert tc.arena_allocs(late, {}, calls=1) == {"after_first_chunk": 1}
+    assert tc.staged_share({"xfer": {"candidates": 8}}) is None
     assert m["wall_ns_per_read"]["submit"] == 47
     assert m["cpu_ns_per_read"] == {"read": 0, "parse": 0, "submit": 25,
                                     "emit": 10}
@@ -297,6 +307,11 @@ def test_trace_cell_runs_the_harness_with_the_tracer(cell):
     assert c["uncovered"] and abs(c["clock_offset_drift_us"]) < 1e5
     lo, hi = c["call_over_harness"]
     assert 0.9 < lo <= hi <= 1.0
+    # every candidate through the staged pass; the arena allocated in
+    # each call's first chunk only
+    assert m["staged_share"] == 1.0
+    assert c["arena_allocs"]["after_first_chunk"] == 0
+    assert c["arena_allocs"]["per_call"] >= 1
     cost = out["cost"]
     assert cost["pairs"] == 1 and len(cost["call_s"]["on"]) == 1
 

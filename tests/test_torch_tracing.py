@@ -186,9 +186,12 @@ def test_one_kernel_launch_per_plain_run(traced):
     assert runs > 0 and len(launches) == runs
     by_id = {s.id: s for s in records}
     assert all(by_id[s.parent].name == "launch" for s in launches)
+    assert any(s.name == "stage" for s in records)
     for s in records:
-        if s.name in ("prefilter", "encode", "launch", "host_stages"):
+        if s.name in ("stage", "launch", "host_stages"):
             assert by_id[s.parent].name == "submit"
+        if s.name == "stage.alloc":
+            assert by_id[s.parent].name == "stage"
         if s.name in ("assemble", "write"):
             assert by_id[s.parent].name == "emit"
 
@@ -213,9 +216,9 @@ def test_call_encloses_setup_and_drive(traced):
 def test_stage_spans_carry_cpu_time(traced):
     _, records, _, _, _ = traced
     for s in records:
-        if s.name in ("read", "parse", "submit", "emit"):
+        if s.name in ("read", "parse", "submit", "emit", "stage"):
             assert s.cpu is not None and s.cpu >= 0
-        elif s.name in ("prefilter", "queue.parsed", "call", "write"):
+        elif s.name in ("launch", "queue.parsed", "call", "write"):
             assert s.cpu is None
 
 

@@ -35,6 +35,7 @@ import cutadapt_tpu_torch.accel as taccel
 import cutadapt_tpu_torch.adapters as tad
 import cutadapt_tpu_torch.batch_pipeline as tbp
 import cutadapt_tpu_torch.cli as port_cli
+from cutadapt_tpu_torch import staging
 from cutadapt_tpu_torch.io.chunks import assemble_window, parse_fastq_chunk
 from cutadapt_tpu_torch.ops import align_cuda
 from cutadapt_tpu_torch.ops.align_batch import query_class_info
@@ -96,14 +97,13 @@ def test_plain_wide_matches_xla_reversed(kind, pack2):
     if not pack2:
         data = fx.add_ns(data, 0.3)
     chunk = parse_fastq_chunk(data)
-    engine = tbp.BatchPipelineEngine([], device="cpu")
     starts = chunk.seq_start.astype(np.int64)
     lens = chunk.seq_len.astype(np.int32)
     sel = np.arange(len(lens), dtype=np.int64)
-    enc = engine._encode(task, chunk, starts, lens, sel, len(sel), 128,
-                         pack2).numpy()
-    packed4 = engine._encode(task, chunk, starts, lens, sel, len(sel), 128,
-                             False).numpy()
+    enc = staging.encode_rows(chunk.buf, starts, lens, sel, len(sel), 128,
+                              task.lut, task.reverse, pack2)
+    packed4 = staging.encode_rows(chunk.buf, starts, lens, sel, len(sel),
+                                  128, task.lut, task.reverse, False)
     got = align_cuda.unpack_wide(align_cuda.locate(
         task.spec, enc, lens, pack2=pack2, device="cpu", wide=True).numpy())
     xla = make_batch_locate(JaxSpec(**task.spec._asdict()), packed=True)(

@@ -35,7 +35,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 import cutadapt_tpu_torch.batch_pipeline as bp  # noqa: E402
-from cutadapt_tpu_torch import native  # noqa: E402
+from cutadapt_tpu_torch import native, staging  # noqa: E402
 from cutadapt_tpu_torch.io.chunks import parse_fastq_chunk  # noqa: E402
 from cutadapt_tpu_torch.ops import align_cuda  # noqa: E402
 
@@ -57,8 +57,9 @@ def encoded_batch(engine, data: bytes, read_len: int):
     rows = chunk.n_records
     starts = chunk.seq_start.astype(np.int64)
     lens = chunk.seq_len.astype(np.int32)
-    enc = engine._encode(task, chunk, starts, lens,
-                         np.arange(rows, dtype=np.int64), rows, width, pack2)
+    enc = torch.from_numpy(staging.encode_rows(
+        chunk.buf, starts, lens, np.arange(rows, dtype=np.int64), rows, width,
+        task.lut, task.reverse, pack2))
     lengths = torch.from_numpy(lens)
     return (enc.to(engine.device), lengths.to(engine.device), task.tables,
             pack2)

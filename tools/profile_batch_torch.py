@@ -9,10 +9,10 @@ warm pass. Submit and collect are split further by the port's own
 spans (cutadapt_tpu_torch/tracing.py), enabled around each:
 
 - submit: ``host_stages`` (the host stages before the adapters),
-  ``prefilter`` (the C++ k-mer scan), ``encode`` (the lane split and the
-  windows packed into pinned buffers), ``launch`` (the upload, the
-  kernel wrapper and the queued copy back of each dispatch batch), and
-  ``rest``, submit's own Python (window bookkeeping);
+  ``stage`` (the staged pass: the C++ k-mer scan, the lane split and
+  every batch encoded into the engine's staging arena), ``launch`` (the
+  upload, the kernel wrapper and the queued copy back of each dispatch
+  batch), and ``rest``, submit's own Python (window bookkeeping);
 - collect: ``result_wait`` (the host waiting on each result's event)
   and ``rest``.
 
@@ -45,7 +45,7 @@ from cutadapt_tpu_torch.io.chunks import (  # noqa: E402
     parse_fastq_chunk,
 )
 
-SUBMIT_PARTS = ("host_stages", "prefilter", "encode", "launch")
+SUBMIT_PARTS = ("host_stages", "stage", "launch")
 COLLECT_PARTS = ("result_wait",)
 
 

@@ -28,8 +28,9 @@ first call to its last, and reduces the spans of the window's calls:
   cover by its top-level, ``wait.*`` and ``queue.*`` spans, and the
   stretches between them by the spans either side (count, median, 95th
   percentile, longest, per call); each ``call`` against the harness's
-  time of the call; a call by part, engine set-up by its parts; and the
-  stretch of a call that no part covers;
+  time of the call; a call by part, engine set-up by its parts; the
+  stretch of a call that no part covers; and the staging arena's
+  allocations (:func:`arena_allocs`);
 - ``idle_gaps_by_thread``: the ten longest stretches with nothing on
   the card, each with the innermost span open over most of it on the
   reader, main (caller and submit) and emit threads.
@@ -138,6 +139,28 @@ def launch_to_kernel_us(ctx):
     return statistics.median(k - s for s, _, k in pairs) / 1e3
 
 
+def staged_share(ctx):
+    """The share of the window's candidates (``XFER["candidates"]``) that
+    went through submit's staged pass (``XFER["staged_rows"]``); None
+    where the program has no such counter."""
+    xfer = ctx.get("xfer") or {}
+    if "staged_rows" not in xfer or not xfer.get("candidates"):
+        return None
+    return xfer["staged_rows"] / xfer["candidates"]
+
+
+def arena_allocs(spans, xfer, calls) -> dict:
+    """The staging arena's allocations: per call (``XFER["pinned_allocs"]``
+    over the window's calls), and the ``stage.alloc`` spans of a chunk
+    after a call's first (chunk numbers start at 0 on each of its
+    threads)."""
+    out = {"after_first_chunk": sum(s.name == "stage.alloc" and bool(s.chunk)
+                                    for s in spans)}
+    if "pinned_allocs" in xfer and calls:
+        out["per_call"] = xfer["pinned_allocs"] / calls
+    return out
+
+
 # metric name -> read(ctx), as a benchmark/metrics/<name>.py would hold it
 READERS = {
     "call_prologue_ms": _mean_ms(_prologue),
@@ -148,8 +171,9 @@ READERS = {
     "submit_starved_ns_per_read": _per_read("wait.parsed"),
     "submit_cpu_ns_per_read": _per_read("submit", "cpu"),
     "host_stages_ns_per_read": _per_read("host_stages"),
-    "prefilter_ns_per_read": _per_read("prefilter"),
-    "encode_ns_per_read": _per_read("encode"),
+    "stage_ns_per_read": _per_read("stage"),
+    "stage_cpu_ns_per_read": _per_read("stage", "cpu"),
+    "staged_share": staged_share,
     "launch_ns_per_read": _per_read("launch"),
     "launch_to_kernel_us": launch_to_kernel_us,
     "emit_queue_ns_per_read": _per_read("queue.emit"),
@@ -444,6 +468,8 @@ def traced_run(workload, seed, seconds, device="cuda", reads=None) -> dict:
                             ctx.get("aligner_launches", ())),
            "spans_per_call": len(records) / max(len(by_call(records)), 1)}
     out["checks"]["clock_offset_drift_us"] = got["offset_drift_ns"] / 1e3
+    out["checks"]["arena_allocs"] = arena_allocs(
+        records, ctx.get("xfer") or {}, len(by_call(records)))
     if got["events"]:
         out["idle_gaps_by_thread"] = idle_gaps_by_thread(records, busy, lo,
                                                          hi)
