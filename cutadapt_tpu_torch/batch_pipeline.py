@@ -81,6 +81,7 @@ selection order of MultipleAdapters.match_to at adapters.py:1265-1286.
 
 import os
 import threading
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -106,8 +107,13 @@ _QS_BITS = 14
 # the staged pass's: the candidates it staged (rows written into the
 # arena, and the lane remainders it handed to the scalar aligner), and
 # the staging arena's allocations (pinned where the device is CUDA).
+# Linked adapters: the 5' phase's candidates (rows handed to the
+# aligner from submit), the remainders offered to the 3' phase on the
+# emit thread, those past its prefilter, and that phase's wall time
+# (perf_counter_ns at its two ends).
 XFER = {"h2d_bytes": 0, "d2h_bytes": 0, "candidates": 0, "dp_rows": 0,
-        "staged_rows": 0, "pinned_allocs": 0}
+        "staged_rows": 0, "pinned_allocs": 0, "linked_front_rows": 0,
+        "linked_back_windows": 0, "linked_back_rows": 0, "linked_back_ns": 0}
 _XFER_LOCK = threading.Lock()
 
 
@@ -181,7 +187,8 @@ def reset_shard_counters() -> None:
 
 
 def _xfer_add(h2d=0, d2h=0, candidates=0, dp_rows=0, staged=0,
-              allocs=0) -> None:
+              allocs=0, front_rows=0, back_windows=0, back_rows=0,
+              back_ns=0) -> None:
     with _XFER_LOCK:
         XFER["h2d_bytes"] += h2d
         XFER["d2h_bytes"] += d2h
@@ -189,6 +196,10 @@ def _xfer_add(h2d=0, d2h=0, candidates=0, dp_rows=0, staged=0,
         XFER["dp_rows"] += dp_rows
         XFER["staged_rows"] += staged
         XFER["pinned_allocs"] += allocs
+        XFER["linked_front_rows"] += front_rows
+        XFER["linked_back_windows"] += back_windows
+        XFER["linked_back_rows"] += back_rows
+        XFER["linked_back_ns"] += back_ns
 
 
 def _count_alloc() -> None:
@@ -1190,6 +1201,7 @@ class BatchPipelineEngine:
             fd = self._dispatch_windows(
                 task.front_task, chunk, starts, lens, width
             )
+            _xfer_add(front_rows=len(fd[0]))
             return ("linked", starts, lens, fd)
         sel, futures = self._dispatch_windows(task, chunk, starts, lens, width)
         return ("single", sel, futures)
@@ -1478,9 +1490,13 @@ class BatchPipelineEngine:
         coordinates; 3' coordinates relative to the remainder)."""
         n = len(starts)
         sel_f, fut_f = front_disp
-        ff, fqs, fqe, fer, fsc = self._fetch_windows(
-            task.front_task, sel_f, fut_f, lens
-        )
+        span = tracing.begin("linked_front")
+        try:
+            ff, fqs, fqe, fer, fsc = self._fetch_windows(
+                task.front_task, sel_f, fut_f, lens
+            )
+        finally:
+            tracing.end(span)
         front_found = np.zeros(n, bool)
         front_found[sel_f] = ff
         front_qs = np.zeros(n, np.int32)
@@ -1492,27 +1508,38 @@ class BatchPipelineEngine:
         front_sc = np.zeros(n, np.int32)
         front_sc[sel_f] = np.where(ff, fsc, 0)
 
-        el = np.flatnonzero(front_found) if task.front_required else np.arange(n)
         back_found = np.zeros(n, bool)
         back_qs = np.zeros(n, np.int32)
         back_qe = np.zeros(n, np.int32)
         back_er = np.zeros(n, np.int32)
         back_sc = np.zeros(n, np.int32)
-        if len(el):
-            starts_b = starts[el] + front_qe[el]
-            lens_b = lens[el] - front_qe[el]
-            sel_b, fut_b = self._dispatch_windows(
-                task.back_task, chunk, starts_b, lens_b, width
-            )
-            bf, bqs, bqe, ber, bsc = self._fetch_windows(
-                task.back_task, sel_b, fut_b, lens_b
-            )
-            hit = el[sel_b]
-            back_found[hit] = bf
-            back_qs[hit] = np.where(bf, bqs, 0)
-            back_qe[hit] = np.where(bf, bqe, 0)
-            back_er[hit] = np.where(bf, ber, 0)
-            back_sc[hit] = np.where(bf, bsc, 0)
+        # the 3' phase: the remainders, their dispatch and the results
+        t0 = time.perf_counter_ns()
+        span = tracing.begin("linked_back", cpu=True)
+        try:
+            el = (np.flatnonzero(front_found) if task.front_required
+                  else np.arange(n))
+            rows = 0
+            if len(el):
+                starts_b = starts[el] + front_qe[el]
+                lens_b = lens[el] - front_qe[el]
+                sel_b, fut_b = self._dispatch_windows(
+                    task.back_task, chunk, starts_b, lens_b, width
+                )
+                rows = len(sel_b)
+                bf, bqs, bqe, ber, bsc = self._fetch_windows(
+                    task.back_task, sel_b, fut_b, lens_b
+                )
+                hit = el[sel_b]
+                back_found[hit] = bf
+                back_qs[hit] = np.where(bf, bqs, 0)
+                back_qe[hit] = np.where(bf, bqe, 0)
+                back_er[hit] = np.where(bf, ber, 0)
+                back_sc[hit] = np.where(bf, bsc, 0)
+        finally:
+            tracing.end(span)
+        _xfer_add(back_windows=len(el), back_rows=rows,
+                  back_ns=time.perf_counter_ns() - t0)
 
         found = (front_found | (not task.front_required)) & (
             back_found | (front_found & (not task.back_required))

@@ -115,6 +115,13 @@ def _run(monkeypatch, package, tmp_path, tag, args, inputs, outputs,
         # candidate went through the pass
         assert xfer.pop("staged_rows") == xfer["candidates"]
         assert xfer.pop("pinned_allocs") >= 0
+        # and the linked phases' counters: the 3' rows are of its windows
+        # past its prefilter, and only a linked adapter's 3' phase runs
+        linked = any("..." in a for a in args)
+        assert 0 <= xfer.pop("linked_back_rows") <= xfer.pop(
+            "linked_back_windows")
+        assert (xfer.pop("linked_back_ns") > 0) == linked
+        assert (xfer.pop("linked_front_rows") > 0) <= linked
     files = {p.name: p.read_bytes() for p in sorted(d.iterdir())
              if p.name != "report.json"}
     return files, fx.json_report(d / "report.json"), xfer

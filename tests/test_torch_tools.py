@@ -224,6 +224,39 @@ def test_trace_cell_readers_on_made_up_spans():
         assert read({"reads": 10}) is None, name
 
 
+LINKED_READERS = {"linked_front_ns_per_read", "linked_back_ns_per_read",
+                  "linked_back_cpu_ns_per_read"}
+
+
+def test_trace_cell_linked_readers_on_made_up_spans():
+    """The emit thread's linked phases of a made-up call: the 5' fetch
+    and the 3' phase of each of its two chunks, the 3' phase holding a
+    staged pass, a launch and a result wait."""
+    tc = _trace_cell()
+    spans = _made_up_call() + [
+        _span(40, "linked_front", "emit", 625, 635, parent=18, chunk=0),
+        _span(41, "linked_back", "emit", 640, 760, parent=18, chunk=0,
+              cpu=70),
+        _span(42, "stage", "emit", 645, 665, parent=41, chunk=0, cpu=20),
+        _span(43, "launch", "emit", 665, 700, parent=41, chunk=0),
+        _span(44, "result_wait", "emit", 700, 750, parent=41, chunk=0),
+        _span(45, "linked_front", "emit", 825, 830, parent=22, chunk=1),
+        _span(46, "linked_back", "emit", 830, 870, parent=22, chunk=1,
+              cpu=30),
+    ]
+    m = tc.metrics({"port_spans": spans, "reads": 10})
+    assert m["linked_front_ns_per_read"] == 1.5
+    assert m["linked_back_ns_per_read"] == 16
+    assert m["linked_back_cpu_ns_per_read"] == 10
+    # the 3' phase's stage and launch count in their own readers too
+    assert m["stage_ns_per_read"] == 9 and m["launch_ns_per_read"] == 13.5
+    # a call without a linked task reads none of them
+    plain = tc.metrics({"port_spans": _made_up_call(), "reads": 10})
+    assert not LINKED_READERS & set(plain)
+    for name in LINKED_READERS:
+        assert tc.READERS[name]({"reads": 10}) is None
+
+
 def test_trace_cell_clock_and_cover_checks():
     tc = _trace_cell()
     spans = _made_up_call()
@@ -298,6 +331,8 @@ def test_trace_cell_runs_the_harness_with_the_tracer(cell):
                                          "launch_to_kernel_us"}
     if cell.startswith("se_"):
         want.discard("host_stages_ns_per_read")
+    # the TruSeq cells have no linked adapter, so no linked spans
+    want -= LINKED_READERS
     assert want <= set(m)
     c = out["checks"]
     # every plain run of the aligner is a kernel_launch; no trace on the CPU

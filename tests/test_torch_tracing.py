@@ -9,7 +9,10 @@ on the CPU (the plain aligner):
   queue and wait spans of 0 ns or more, one ``kernel_launch`` per plain
   run of the aligner, and one ``call`` per call that encloses its
   ``engine_setup`` and ``drive``;
-- the times are on the wall clock and the stage spans carry CPU time.
+- the times are on the wall clock and the stage spans carry CPU time;
+- a linked run records the fetch of its 5' results and its 3' phase on
+  the emit thread, and the linked XFER counters count there and stay 0
+  on a run without a linked adapter.
 """
 
 import time
@@ -18,8 +21,12 @@ import tracemalloc
 import pytest
 
 from cutadapt_tpu_torch import cli, tracing
+from cutadapt_tpu_torch.batch_pipeline import xfer_counters
 from cutadapt_tpu_torch.ops import align_cuda
-from torch_fixtures import ADAPTER, make_dataset, make_pairs, one_torch_thread
+from torch_fixtures import (
+    ADAPTER, LINKED_PRIMERS, make_amplicons, make_dataset, make_pairs,
+    one_torch_thread,
+)
 
 ADAPTER2 = "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"
 # small chunks: several in flight on every thread
@@ -58,7 +65,15 @@ def paired_args(d) -> list:
             str(d / "in.1.fastq"), str(d / "in.2.fastq")]
 
 
+def linked_args(d) -> list:
+    (d / "amp.fastq").write_bytes(make_amplicons(300))
+    return ["--quiet", "-a", LINKED_PRIMERS, "--discard-untrimmed",
+            "-o", str(d / "out.fastq"), str(d / "amp.fastq")]
+
+
 ARGS = {"single": single_args, "paired": paired_args}
+LINKED = ("linked_front_rows", "linked_back_windows", "linked_back_rows",
+          "linked_back_ns")
 
 
 def plain_runs() -> int:
@@ -233,3 +248,49 @@ def test_enable_starts_afresh():
     tracing.end(inner)
     again = tracing.disable()
     assert [(s.name, s.parent) for s in again] == [("y", None)]
+
+
+def _counted(args) -> tuple:
+    """One call with the tracer on: (records, the linked XFER counters'
+    growth over it)."""
+    before = xfer_counters()
+    tracing.enable()
+    cli.main(args)
+    records = tracing.disable()
+    after = xfer_counters()
+    return records, {k: after[k] - before[k] for k in LINKED}
+
+
+def test_linked_phases_on_the_emit_thread(port):
+    """Each chunk of a linked run: the 5' results fetched and the 3' phase
+    run on the emit thread, in its emit, the 3' phase's staged pass and
+    launch inside it; the counters count its rows and its time."""
+    records, grown = _counted(linked_args(port))
+    by_id = {s.id: s for s in records}
+    emits = [s for s in records if s.name == "emit"]
+    for name in ("linked_front", "linked_back"):
+        spans = [s for s in records if s.name == name]
+        assert len(spans) == len(emits) > 2, name
+        assert all(s.stage == "emit" and by_id[s.parent].name == "emit"
+                   for s in spans)
+    backs = {s.id for s in records if s.name == "linked_back"}
+    inside = {s.name for s in records if s.parent in backs}
+    assert {"stage", "launch"} <= inside
+    assert all(s.cpu is not None and s.cpu >= 0 for s in records
+               if s.name == "linked_back")
+    # the 5' phase still stages and launches from submit
+    assert any(s.name == "launch" and by_id[s.parent].name == "submit"
+               for s in records)
+    # about 95% of the reads carry the 5' primer, and all of them the 3'
+    assert 0 < grown["linked_back_rows"] <= grown["linked_back_windows"]
+    assert grown["linked_back_windows"] <= grown["linked_front_rows"] <= 300
+    assert grown["linked_back_windows"] >= 250
+    # the counter's two clock reads enclose the span's
+    span_ns = sum(s.end - s.start for s in records if s.name == "linked_back")
+    assert grown["linked_back_ns"] >= span_ns > 0
+
+
+def test_linked_counters_stay_zero_without_a_linked_task(port):
+    records, grown = _counted(single_args(port))
+    assert grown == dict.fromkeys(LINKED, 0)
+    assert not any(s.name.startswith("linked_") for s in records)

@@ -181,6 +181,9 @@ READERS = {
     "result_wait_ns_per_read": _per_read("result_wait"),
     "assemble_ns_per_read": _per_read("assemble"),
     "write_ns_per_read": _per_read("write"),
+    "linked_front_ns_per_read": _per_read("linked_front"),
+    "linked_back_ns_per_read": _per_read("linked_back"),
+    "linked_back_cpu_ns_per_read": _per_read("linked_back", "cpu"),
 }
 # beside them, the wall and CPU time of the stage spans
 WALL = ("read", "parse", "submit", "emit", "wait.emit")
