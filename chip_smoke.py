@@ -64,8 +64,8 @@ Phases, each of which must pass:
    -a ^GTGYCAGCMGCCGCGGTAA...ATTAGAWACCCBNGTAGTCC --discard-untrimmed
    (the 16S V4 primers 515F and 806R), on 131,072 synthetic amplicon
    reads of 260-299 bp, held and measured as phase 6; the 5' phase
-   launches the kernel from submit, the 3' phase from collect, and each
-   must launch the 2-bit lane;
+   launches the kernel from submit, the 3' phase from the engine's
+   linked worker, and each must launch the 2-bit lane;
 8. paired TruSeq: -a AGATCGGAAGAGCACACGTCTGAACTCCAGTCA -A
    AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT -q 20 -m 20 -o -p (the TruSeq R1/R2
    adapters of cutadapt's user guide, Trim Galore's default -q 20 -m 20)
@@ -2730,7 +2730,7 @@ def main() -> int:
     del polya
     phase_done("6 host stages")
     # 7. linked primers: the 5' phase (PREFIX) launches from submit, the
-    # 3' phase (BACK) from collect
+    # 3' phase (BACK) from the engine's linked worker
     from cutadapt_tpu_torch.adapters import Where
 
     t0 = time.perf_counter()

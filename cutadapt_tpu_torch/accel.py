@@ -1390,7 +1390,7 @@ def _on_device(fn, device):
     """fn run with ``device`` as the calling thread's current CUDA
     device (the drive calls submit and emit from several threads, and
     the current device is per host thread; emit's collect launches the
-    3' phase of a linked adapter)."""
+    3' phase of a linked adapter's later rounds)."""
     if device.type != "cuda":
         return fn
     import torch
@@ -1647,10 +1647,13 @@ def _run_single(pipeline, infiles, progress) -> Optional[Statistics]:
     else:
         chunks_iter = _parsed(parse_fastq_chunk,
                               read_chunks(infile, _chunk_bytes()))
-    _pipelined_drive(
-        chunks_iter, _on_device(submit, engine.device),
-        _on_device(emit, engine.device),
-    )
+    try:
+        _pipelined_drive(
+            chunks_iter, _on_device(submit, engine.device),
+            _on_device(emit, engine.device),
+        )
+    finally:
+        engine.close()
     if reducer is not None:
         reducer.fold()  # one sum across shards, one copy per buffer
     infiles.close()
@@ -2962,10 +2965,14 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
             RUN_TIMES["first_submit"] = time.perf_counter()
         return engine1.submit(p1), engine2.submit(p2), full
 
-    _pipelined_drive(
-        chunk_pairs(), _on_device(submit_pair, engine1.device),
-        _on_device(emit, engine1.device),
-    )
+    try:
+        _pipelined_drive(
+            chunk_pairs(), _on_device(submit_pair, engine1.device),
+            _on_device(emit, engine1.device),
+        )
+    finally:
+        engine1.close()
+        engine2.close()
     if reducer is not None:
         reducer.fold()  # one sum across shards, one copy per buffer
     infiles.close()

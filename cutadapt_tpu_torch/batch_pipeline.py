@@ -13,10 +13,12 @@ on the host.
 
 Adapter tasks: the kernel kinds (regular, front, anywhere, non-internal,
 anchored with indels, rightmost), linked adapters (a 5' phase launched
-from :meth:`BatchPipelineEngine.submit`, a 3' phase launched from
-:meth:`BatchPipelineEngine.collect` on the 5' phase's remainders), and
-two host-only kinds: the anchored comparers without indels and the
-indexed anchored adapter sets (dict lookups).
+from :meth:`BatchPipelineEngine.submit`, a 3' phase on the 5' phase's
+remainders, run by the engine's worker thread as soon as submit has
+dispatched the 5' phase, or in :meth:`BatchPipelineEngine.collect` for
+a round dispatched there), and two host-only kinds: the anchored
+comparers without indels and the indexed anchored adapter sets (dict
+lookups).
 
 Per chunk the host work is: parse (C++), the host stages before the
 adapter stage, then per dispatch the staged pass (:mod:`staging`, two
@@ -82,6 +84,7 @@ selection order of MultipleAdapters.match_to at adapters.py:1265-1286.
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -108,12 +111,15 @@ _QS_BITS = 14
 # arena, and the lane remainders it handed to the scalar aligner), and
 # the staging arena's allocations (pinned where the device is CUDA).
 # Linked adapters: the 5' phase's candidates (rows handed to the
-# aligner from submit), the remainders offered to the 3' phase on the
-# emit thread, those past its prefilter, and that phase's wall time
-# (perf_counter_ns at its two ends).
+# aligner from submit), the remainders offered to the 3' phase, those
+# past its prefilter, and that phase's wall time (perf_counter_ns at its
+# two ends); of the 3' phases run by the engine's worker, collect's wall
+# time blocked on their results and the count already done when
+# collect asked.
 XFER = {"h2d_bytes": 0, "d2h_bytes": 0, "candidates": 0, "dp_rows": 0,
         "staged_rows": 0, "pinned_allocs": 0, "linked_front_rows": 0,
-        "linked_back_windows": 0, "linked_back_rows": 0, "linked_back_ns": 0}
+        "linked_back_windows": 0, "linked_back_rows": 0, "linked_back_ns": 0,
+        "linked_back_wait_ns": 0, "linked_back_ready": 0}
 _XFER_LOCK = threading.Lock()
 
 
@@ -188,7 +194,7 @@ def reset_shard_counters() -> None:
 
 def _xfer_add(h2d=0, d2h=0, candidates=0, dp_rows=0, staged=0,
               allocs=0, front_rows=0, back_windows=0, back_rows=0,
-              back_ns=0) -> None:
+              back_ns=0, back_wait_ns=0, back_ready=0) -> None:
     with _XFER_LOCK:
         XFER["h2d_bytes"] += h2d
         XFER["d2h_bytes"] += d2h
@@ -200,6 +206,8 @@ def _xfer_add(h2d=0, d2h=0, candidates=0, dp_rows=0, staged=0,
         XFER["linked_back_windows"] += back_windows
         XFER["linked_back_rows"] += back_rows
         XFER["linked_back_ns"] += back_ns
+        XFER["linked_back_wait_ns"] += back_wait_ns
+        XFER["linked_back_ready"] += back_ready
 
 
 def _count_alloc() -> None:
@@ -1026,6 +1034,9 @@ class BatchPipelineEngine:
         self._arena = staging.StagingArena(PIPELINE_DEPTH + 1, self._pinned,
                                            on_alloc=_count_alloc)
         self._pf_sets = {}  # the prefilter sets of _prefilter
+        # the worker of linked adapters' 3' phases, started by the first
+        # linked dispatch of submit (_queue_linked)
+        self._linked_pool = None
         # split the stages at the adapter stage: everything after it
         # depends on the DP results and runs in collect()
         self._adapter_pos = next(
@@ -1193,8 +1204,9 @@ class BatchPipelineEngine:
     def _dispatch_task(self, task, chunk, subset, win_start, win_stop, width):
         """Dispatch one task over `subset`'s current windows. Returns
         ('single', sel, futures) or, for a linked task, ('linked',
-        starts, lens, the 5' phase's (sel, futures)); positions are
-        relative to `subset`."""
+        starts, lens, the 5' phase's (sel, futures), None: the future
+        of the 3' phase, which :meth:`_queue_linked` fills in);
+        positions are relative to `subset`."""
         starts = (chunk.seq_start[subset] + win_start[subset]).astype(np.int64)
         lens = (win_stop[subset] - win_start[subset]).astype(np.int32)
         if task.kind == "linked":
@@ -1202,7 +1214,7 @@ class BatchPipelineEngine:
                 task.front_task, chunk, starts, lens, width
             )
             _xfer_add(front_rows=len(fd[0]))
-            return ("linked", starts, lens, fd)
+            return ("linked", starts, lens, fd, None)
         sel, futures = self._dispatch_windows(task, chunk, starts, lens, width)
         return ("single", sel, futures)
 
@@ -1558,6 +1570,51 @@ class BatchPipelineEngine:
             back_errors=back_er,
         )
 
+    def _queue_linked(self, stage, chunk, dispatched, width):
+        """``dispatched`` (one _dispatch_stage result per task of
+        ``stage``), each linked task's whole :meth:`_resolve_linked`
+        queued on the engine's worker, its future in the dispatch tuple.
+        The worker is one thread, started here at the first linked
+        dispatch, on the engine's CUDA device (the dispatching thread's
+        current one where the engine's names no index); its jobs run in
+        the order queued, its spans under the stage ``linked`` and the
+        chunk of the dispatching thread."""
+        out = []
+        for task, disp in zip(stage.tasks, dispatched):
+            if disp[0] == "linked":
+                if self._linked_pool is None:
+                    init, args = None, ()
+                    if self.device.type == "cuda":
+                        index = self.device.index
+                        init, args = torch.cuda.set_device, (
+                            torch.cuda.current_device() if index is None
+                            else index,)
+                    self._linked_pool = ThreadPoolExecutor(
+                        max_workers=1, thread_name_prefix="linked",
+                        initializer=init, initargs=args)
+                _, starts, lens, fd, _ = disp
+                disp = disp[:4] + (self._linked_pool.submit(
+                    self._resolve_queued, tracing.current_chunk(), task,
+                    chunk, starts, lens, fd, width),)
+            out.append(disp)
+        return out
+
+    def _resolve_queued(self, seq, task, chunk, starts, lens, front_disp,
+                        width):
+        """A job of the linked worker: :meth:`_resolve_linked` traced
+        under the stage ``linked`` and chunk ``seq``."""
+        tracing.set_stage("linked", seq)
+        return self._resolve_linked(task, chunk, starts, lens, front_disp,
+                                    width)
+
+    def close(self) -> None:
+        """Stop the linked worker, if it started: the jobs not begun are
+        cancelled, a running one is finished. A later linked dispatch
+        starts a new one."""
+        pool, self._linked_pool = self._linked_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+
     def _adapter_round(self, stage, chunk, subset, win_start, win_stop,
                        width, dispatched=None, last_gid=None,
                        score_acc=None):
@@ -1582,10 +1639,21 @@ class BatchPipelineEngine:
         linked_results = {}
         for t_i, (task, disp) in enumerate(zip(stage.tasks, dispatched)):
             if disp[0] == "linked":
-                _, starts, lens, front_disp = disp
-                res = self._resolve_linked(
-                    task, chunk, starts, lens, front_disp, width
-                )
+                _, starts, lens, front_disp, queued = disp
+                if queued is None:  # a round dispatched here
+                    res = self._resolve_linked(
+                        task, chunk, starts, lens, front_disp, width
+                    )
+                else:
+                    ready = queued.done()
+                    t0 = time.perf_counter_ns()
+                    span = tracing.begin("linked_wait")
+                    try:
+                        res = queued.result()
+                    finally:
+                        tracing.end(span)
+                    _xfer_add(back_wait_ns=time.perf_counter_ns() - t0,
+                              back_ready=int(ready))
                 linked_results[t_i] = res
                 cand = subset
                 f, er, sc = res["found"], res["errors"], res["score"]
@@ -1773,7 +1841,8 @@ class BatchPipelineEngine:
 
     def submit(self, parsed) -> PendingBatch:
         """Start a chunk: the host stages before the adapter stage, then
-        prefilter, encode and launch its DP batches."""
+        prefilter, encode and launch its DP batches, and queue each linked
+        task's 3' phase on the engine's worker (:meth:`_queue_linked`)."""
         B = parsed.n_records
         win_start = np.zeros(B, np.int32)
         win_stop = parsed.seq_len.astype(np.int32).copy()
@@ -1800,6 +1869,7 @@ class BatchPipelineEngine:
                 fwd_disp = self._dispatch_stage(
                     stage, parsed, subset, win_start, win_stop, width
                 )
+                fwd_disp = self._queue_linked(stage, parsed, fwd_disp, width)
                 dp_futures = fwd_disp
                 if isinstance(stage, RevcompStage):
                     # the reverse-complemented copy shares every offset,
@@ -1815,6 +1885,8 @@ class BatchPipelineEngine:
                     rc_disp = self._dispatch_stage(
                         stage, rc_chunk, subset, rc_ws, rc_we, width
                     )
+                    rc_disp = self._queue_linked(stage, rc_chunk, rc_disp,
+                                                 width)
                     dp_futures = (rc_chunk, rc_ws, rc_we, fwd_disp, rc_disp)
         return PendingBatch(
             parsed, win_start, win_stop, stats, stage, self.stages[pos + 1 :],
@@ -1909,10 +1981,11 @@ class BatchPipelineEngine:
         return matched_any, events
 
     def collect(self, pending: PendingBatch):
-        """Finish a chunk: fetch the DP results (a linked task's 3'
-        phase is dispatched and fetched here), update the windows, run
-        the host stages after the adapter stage, then the filters.
-        Returns (win_start, win_stop, keep, stats)."""
+        """Finish a chunk: fetch the DP results (a linked task's 3' phase
+        from the engine's worker, or, for a round dispatched here, run
+        here), update the windows, run the host stages after the adapter
+        stage, then the filters. Returns (win_start, win_stop, keep,
+        stats)."""
         chunk = pending.parsed
         B = chunk.n_records
         win_start, win_stop = pending.win_start, pending.win_stop

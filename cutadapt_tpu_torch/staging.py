@@ -183,8 +183,8 @@ class StagingArena:
     launches its batches and :meth:`release` s it with an event over the
     uploads queued so far (None: the launches read the slot before they
     returned, as on the CPU); a slot is written again only after its
-    event has passed. Two threads may stage at once (submit, and a
-    linked adapter's 3' phase in collect)."""
+    event has passed. Several threads may stage at once (submit, and a
+    linked adapter's 3' phase on the engine's worker or in collect)."""
 
     def __init__(self, slots: int, pinned: bool, on_alloc=None):
         self._free = [Slot() for _ in range(slots)]  # oldest release first

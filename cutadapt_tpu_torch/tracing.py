@@ -21,9 +21,10 @@ returns. A site opens its span where the work starts and closes it in a
 
 Each :class:`Span` holds its name; the stage of the thread it ran on
 (``caller``, or in the drive ``reader``, ``submit`` (the caller's own
-thread) or ``emit``); the id of the ``cli.main`` call it belongs to;
+thread) or ``emit``, and ``linked``, an engine's worker of linked
+adapters' 3' phases); the id of the ``cli.main`` call it belongs to;
 the sequence number of the chunk it worked on, shared by one chunk's
-spans on all three threads (None outside the drive); its parent, the
+spans on all its threads (None outside the drive); its parent, the
 innermost span open on the same thread when it began; its start and
 end in ns; and, for the stage spans opened with ``cpu=True``, the
 thread's CPU ns over the span (``time.thread_time_ns``).
@@ -163,6 +164,11 @@ def set_chunk(chunk) -> None:
     if _records is None:
         return
     _local.chunk = chunk
+
+
+def current_chunk():
+    """The chunk this thread works on (None where none was set)."""
+    return getattr(_local, "chunk", None)
 
 
 def in_flight_max(records) -> int:

@@ -330,8 +330,8 @@ def _engine_on_card_and_cpu(stages_fn, filters, data, records=1000):
 @pytest.mark.cuda
 def test_linked_engine_on_card_matches_cpu(card, monkeypatch):
     """The linked primers of chip_smoke.py's phase 7: the 5' phase
-    launches from submit, the 3' phase from collect, both in the 2-bit
-    lane; the card's output equals the CPU engine's."""
+    launches from submit, the 3' phase from the engine's linked worker,
+    both in the 2-bit lane; the card's output equals the CPU engine's."""
     phases = []
     real = tbp.locate_packed
     monkeypatch.setattr(

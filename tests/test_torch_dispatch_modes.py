@@ -122,6 +122,9 @@ def _run(monkeypatch, package, tmp_path, tag, args, inputs, outputs,
             "linked_back_windows")
         assert (xfer.pop("linked_back_ns") > 0) == linked
         assert (xfer.pop("linked_front_rows") > 0) <= linked
+        # each first round's 3' phase from the worker: emit's wait for it
+        assert (xfer.pop("linked_back_wait_ns") > 0) == linked
+        assert (xfer.pop("linked_back_ready") > 0) <= linked
     files = {p.name: p.read_bytes() for p in sorted(d.iterdir())
              if p.name != "report.json"}
     return files, fx.json_report(d / "report.json"), xfer

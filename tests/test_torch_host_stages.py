@@ -10,6 +10,8 @@ package's main: output file and JSON report equal. Tolerance: exact.
 
 import json
 import os
+import sys
+import threading
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -249,22 +251,37 @@ def test_adapter_kinds_match_jax(request, case):
 
 def test_linked_launches_both_phases(amplicons, monkeypatch):
     """A linked task launches the aligner in submit (the 5' phase, a
-    PREFIX flag set) and in collect (the 3' phase, BACK, on the
-    remainders)."""
+    PREFIX flag set) and on the engine's worker thread (the 3' phase,
+    BACK, on the remainders), which close stops."""
     flags = []
     real = tbp.locate_packed
     monkeypatch.setattr(
         tbp, "locate_packed",
         lambda enc, lens, tables, pack2, **kw: flags.append(
-            tables.spec.flags) or real(enc, lens, tables, pack2, **kw),
+            (tables.spec.flags, threading.current_thread().name))
+        or real(enc, lens, tables, pack2, **kw),
     )
     stage, _ = fx.cutter_stage(PORT, [("back", fx.LINKED_PRIMERS)])
+    before = set(threading.enumerate())
     engine = tbp.BatchPipelineEngine([stage], **SIZES, device="cpu")
-    pending = engine.submit(parse_fastq_chunk(amplicons))
-    in_submit = set(flags)
-    engine.collect(pending)
-    assert in_submit == {jad.Where.PREFIX.value}
-    assert set(flags) - in_submit == {jad.Where.BACK.value}
+    try:
+        engine.collect(engine.submit(parse_fastq_chunk(amplicons)))
+    finally:
+        engine.close()
+    here = threading.current_thread().name
+    assert {f for f, name in flags if name == here} == {
+        jad.Where.PREFIX.value}
+    assert {f for f, name in flags if name != here} == {jad.Where.BACK.value}
+    assert all(name.startswith("linked") for _, name in flags
+               if name != here)
+    assert not _linked_threads(before)
+
+
+def _linked_threads(before) -> list:
+    """The live linked workers that were not alive at ``before`` (a set
+    of threads): those an engine of the test left running."""
+    return [t for t in threading.enumerate()
+            if t.name.startswith("linked") and t not in before]
 
 
 # the configurations of chip_smoke.py's phases 6 and 7, at small scale
@@ -317,3 +334,128 @@ def test_main_matches_jax_cli(monkeypatch, tmp_path, config):
     if config == "quality_polya":
         assert report["basepair_counts"]["quality_trimmed"] > 0
         assert report["basepair_counts"]["poly_a_trimmed"] > 0
+
+
+_IUPAC_COMPLEMENT = str.maketrans("ACGTRYKMSWBDHVN", "TGCAYRMKSWVHDBN")
+
+
+def _revcomp(seq: str) -> str:
+    return seq.translate(_IUPAC_COMPLEMENT)[::-1]
+
+
+def _mates(data: bytes) -> bytes:
+    """The reverse-complemented mates of FASTQ ``data``: same names,
+    qualities reversed."""
+    lines = data.decode().split("\n")
+    out = []
+    for i in range(0, len(lines) - 3, 4):
+        out += [lines[i], _revcomp(lines[i + 1]), "+", lines[i + 3][::-1]]
+    return ("\n".join(out) + "\n").encode()
+
+
+FWD, REV = fx.PRIMER_515F, _revcomp(fx.PRIMER_806R_RC)
+# -a and -A of linked primers over many chunks, 5' parts anchored or not
+# (R1's anchored, R2's not where paired)
+LINKED_CONFIGS = {
+    "single_anchored": ["-a", f"^{FWD}...{_revcomp(REV)}",
+                        "--discard-untrimmed"],
+    "single_unanchored": ["-a", f"{FWD}...{_revcomp(REV)}"],
+    "paired": ["-a", f"^{FWD}...{_revcomp(REV)}",
+               "-A", f"{REV}...{_revcomp(FWD)}", "--discard-untrimmed"],
+}
+
+
+def _main_both(monkeypatch, tmp_path, args, inputs, env=()):
+    """``args`` over ``inputs`` through the port's main (require mode, the
+    environment ``env``) and the JAX package's: each one's output files
+    and JSON report."""
+    got = {}
+    for which, main in (("port", port_cli.main), ("jax", jax_cli.main)):
+        with monkeypatch.context() as m:
+            for name in ("CUTADAPT_TPU_TORCH_CHUNK_BYTES",
+                         "CUTADAPT_TPU_BATCH"):
+                m.delenv(name, raising=False)
+            m.setenv("CUTADAPT_TPU_TORCH_DEVICE", "cpu")
+            m.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
+            for k, v in env:
+                m.setenv(k, v)
+            for module in (tad, jad):
+                m.setattr(module, "_adapter_counter", [0])
+            outs = [tmp_path / f"{which}.{i}.fastq"
+                    for i in range(len(inputs))]
+            rep = tmp_path / f"{which}.json"
+            paired = ["-p", str(outs[1])] if len(outs) > 1 else []
+            main(args + ["--quiet", "-o", str(outs[0]), *paired, "--json",
+                         str(rep)] + [str(p) for p in inputs])
+        report = json.loads(rep.read_text())
+        for key in IGNORED_REPORT_KEYS:
+            report.pop(key)
+        got[which] = ([o.read_bytes() for o in outs], report)
+    return got
+
+
+@pytest.mark.parametrize("config", sorted(LINKED_CONFIGS))
+def test_linked_over_many_chunks_matches_jax_cli(monkeypatch, tmp_path,
+                                                 config):
+    """Linked primers over six chunks, each chunk's 3' phase on the
+    engine's worker while submit runs ahead, the threads switching often:
+    the port's outputs and JSON report byte for byte the JAX package's;
+    no fallback, the worker stopped when main returns."""
+    before = set(threading.enumerate())
+    data = fx.make_amplicons(150, seed=35)
+    inputs = [tmp_path / "in.1.fastq"]
+    inputs[0].write_bytes(data)
+    if config.startswith("paired"):
+        inputs.append(tmp_path / "in.2.fastq")
+        inputs[1].write_bytes(_mates(data))
+    fallbacks = taccel.FALLBACK_COUNT
+    queued = []
+    real = tbp.BatchPipelineEngine._resolve_queued
+    monkeypatch.setattr(
+        tbp.BatchPipelineEngine, "_resolve_queued",
+        lambda self, *a: queued.append(threading.current_thread().name)
+        or real(self, *a))
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        got = _main_both(monkeypatch, tmp_path, LINKED_CONFIGS[config],
+                         inputs,
+                         env=[("CUTADAPT_TPU_TORCH_CHUNK_BYTES", "16000")])
+    finally:
+        sys.setswitchinterval(interval)
+    assert taccel.FALLBACK_COUNT == fallbacks
+    # one 3' phase per chunk and engine, each on a worker
+    assert len(queued) == 6 * len(inputs)
+    assert all(name.startswith("linked") for name in queued)
+    assert got["port"] == got["jax"]
+    report = got["port"][1]
+    assert report["read_counts"]["read1_with_adapter"] > 0
+    if config.startswith("paired"):
+        assert report["read_counts"]["read2_with_adapter"] > 0
+    assert not _linked_threads(before)
+
+
+def test_linked_worker_failure_leaves_main(monkeypatch, tmp_path):
+    """An exception in a 3' phase on the linked worker comes out of the
+    port's main, and the worker is stopped."""
+    inp = tmp_path / "in.fastq"
+    inp.write_bytes(fx.make_amplicons(150, seed=36))
+    before = set(threading.enumerate())
+    real = tbp.BatchPipelineEngine._resolve_linked
+    failed = []
+
+    def failing(self, *args):
+        if threading.current_thread().name.startswith("linked"):
+            failed.append(True)
+            raise RuntimeError("3' phase failed")
+        return real(self, *args)
+
+    monkeypatch.setattr(tbp.BatchPipelineEngine, "_resolve_linked", failing)
+    monkeypatch.setenv("CUTADAPT_TPU_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
+    monkeypatch.setenv("CUTADAPT_TPU_TORCH_CHUNK_BYTES", "16000")
+    with pytest.raises(RuntimeError, match="3' phase failed"):
+        port_cli.main(["--quiet", "-a", fx.LINKED_PRIMERS,
+                       "--discard-untrimmed", "-o",
+                       str(tmp_path / "out.fastq"), str(inp)])
+    assert failed and not _linked_threads(before)

@@ -225,31 +225,53 @@ def test_trace_cell_readers_on_made_up_spans():
 
 
 LINKED_READERS = {"linked_front_ns_per_read", "linked_back_ns_per_read",
-                  "linked_back_cpu_ns_per_read"}
+                  "linked_back_cpu_ns_per_read",
+                  "linked_back_wait_ns_per_read", "linked_ready_share"}
 
 
 def test_trace_cell_linked_readers_on_made_up_spans():
-    """The emit thread's linked phases of a made-up call: the 5' fetch
-    and the 3' phase of each of its two chunks, the 3' phase holding a
-    staged pass, a launch and a result wait."""
+    """The linked phases of a made-up call on the engine's worker: the 5'
+    fetch and the 3' phase of each of its two chunks, the 3' phase
+    holding a staged pass, a launch and a result wait; emit's wait for
+    each chunk's 3' results."""
     tc = _trace_cell()
     spans = _made_up_call() + [
-        _span(40, "linked_front", "emit", 625, 635, parent=18, chunk=0),
-        _span(41, "linked_back", "emit", 640, 760, parent=18, chunk=0,
-              cpu=70),
-        _span(42, "stage", "emit", 645, 665, parent=41, chunk=0, cpu=20),
-        _span(43, "launch", "emit", 665, 700, parent=41, chunk=0),
-        _span(44, "result_wait", "emit", 700, 750, parent=41, chunk=0),
-        _span(45, "linked_front", "emit", 825, 830, parent=22, chunk=1),
-        _span(46, "linked_back", "emit", 830, 870, parent=22, chunk=1,
-              cpu=30),
+        _span(40, "linked_front", "linked", 505, 515, chunk=0),
+        _span(41, "linked_back", "linked", 520, 640, chunk=0, cpu=70),
+        _span(42, "stage", "linked", 525, 545, parent=41, chunk=0, cpu=20),
+        _span(43, "launch", "linked", 545, 580, parent=41, chunk=0),
+        _span(44, "result_wait", "linked", 580, 630, parent=41, chunk=0),
+        _span(45, "linked_front", "linked", 805, 810, chunk=1),
+        _span(46, "linked_back", "linked", 810, 850, chunk=1, cpu=30),
+        _span(47, "linked_wait", "emit", 615, 640, parent=18, chunk=0),
+        _span(48, "linked_wait", "emit", 825, 850, parent=22, chunk=1),
     ]
-    m = tc.metrics({"port_spans": spans, "reads": 10})
+    m = tc.metrics({"port_spans": spans, "reads": 10,
+                    "xfer": {"linked_back_ready": 1}})
     assert m["linked_front_ns_per_read"] == 1.5
     assert m["linked_back_ns_per_read"] == 16
     assert m["linked_back_cpu_ns_per_read"] == 10
+    assert m["linked_back_wait_ns_per_read"] == 5
+    # one of the two 3' phases was done when collect asked
+    assert m["linked_ready_share"] == 0.5
+    assert tc.linked_ready_share({"port_spans": spans, "xfer": {}}) is None
     # the 3' phase's stage and launch count in their own readers too
     assert m["stage_ns_per_read"] == 9 and m["launch_ns_per_read"] == 13.5
+    # the worker is a thread of its own: its cover (idle between jobs),
+    # the stretch between its jobs, its span in an idle gap of the card
+    cover = tc.thread_cover(spans)
+    assert cover["linked"] == 175 / 345 and cover["emit"] == 1.0
+    assert tc.cover_gaps(spans)["linked: linked_back -> linked_front"] == [
+        165]
+    c = tc.checks(spans, [(0, 1000)], busy=[(455, 700)], kernel_starts=[470],
+                  aligner_launches=[(455, 470)])
+    assert c["thread_cover_min"]["linked"] == 175 / 345
+    # the card idle while the worker runs chunk 0's 3' phase
+    gaps = tc.idle_gaps_by_thread(spans, busy=[(0, 520), (640, 1000)],
+                                  lo=0, hi=1000, top=1)
+    assert gaps == [{"s": 120 / 1e9, "reader": "queue.parsed",
+                     "main": "submit", "emit": "wait.emit",
+                     "linked": "linked_back"}]
     # a call without a linked task reads none of them
     plain = tc.metrics({"port_spans": _made_up_call(), "reads": 10})
     assert not LINKED_READERS & set(plain)
@@ -309,9 +331,9 @@ def test_trace_cell_names_each_threads_span_in_idle_gaps():
                                   top=2)
     # the longest: 0-455, then 700-1000
     assert gaps[0] == {"s": 455 / 1e9, "reader": "none", "main": "drive",
-                       "emit": "wait.emit"}
+                       "emit": "wait.emit", "linked": "none"}
     assert gaps[1] == {"s": 300 / 1e9, "reader": "none",
-                       "main": "drive", "emit": "none"}
+                       "main": "drive", "emit": "none", "linked": "none"}
     # over 320-600 the submit thread is in submit, the reader blocked on
     # a full queue, the emit thread waiting
     assert tc.innermost(spans, ("caller", "submit"), 320, 600) == "submit"

@@ -11,17 +11,23 @@ on the CPU (the plain aligner):
   ``engine_setup`` and ``drive``;
 - the times are on the wall clock and the stage spans carry CPU time;
 - a linked run records the fetch of its 5' results and its 3' phase on
-  the emit thread, and the linked XFER counters count there and stay 0
-  on a run without a linked adapter.
+  the engine's worker (the stage ``linked``), once per chunk, and emit's
+  wait for them; a later round's 3' phase runs in emit; the linked XFER
+  counters count, and stay 0 on a run without a linked adapter, which
+  starts no thread beyond the drive's.
 """
 
+import concurrent.futures
+import threading
 import time
 import tracemalloc
 
 import pytest
 
 from cutadapt_tpu_torch import cli, tracing
-from cutadapt_tpu_torch.batch_pipeline import xfer_counters
+from cutadapt_tpu_torch.batch_pipeline import (
+    BatchPipelineEngine, xfer_counters,
+)
 from cutadapt_tpu_torch.ops import align_cuda
 from torch_fixtures import (
     ADAPTER, LINKED_PRIMERS, make_amplicons, make_dataset, make_pairs,
@@ -65,15 +71,15 @@ def paired_args(d) -> list:
             str(d / "in.1.fastq"), str(d / "in.2.fastq")]
 
 
-def linked_args(d) -> list:
+def linked_args(d, *extra) -> list:
     (d / "amp.fastq").write_bytes(make_amplicons(300))
-    return ["--quiet", "-a", LINKED_PRIMERS, "--discard-untrimmed",
+    return ["--quiet", "-a", LINKED_PRIMERS, "--discard-untrimmed", *extra,
             "-o", str(d / "out.fastq"), str(d / "amp.fastq")]
 
 
 ARGS = {"single": single_args, "paired": paired_args}
 LINKED = ("linked_front_rows", "linked_back_windows", "linked_back_rows",
-          "linked_back_ns")
+          "linked_back_ns", "linked_back_wait_ns", "linked_back_ready")
 
 
 def plain_runs() -> int:
@@ -261,18 +267,48 @@ def _counted(args) -> tuple:
     return records, {k: after[k] - before[k] for k in LINKED}
 
 
-def test_linked_phases_on_the_emit_thread(port):
+@pytest.fixture
+def worker_ahead(monkeypatch):
+    """collect waits until the linked worker has finished the chunk's 3'
+    phases before it asks for them, so that each is ready."""
+    collect = BatchPipelineEngine.collect
+
+    def waiting(self, pending):
+        concurrent.futures.wait([d[4] for d in pending.dp_futures or ()
+                                 if d[0] == "linked" and d[4] is not None])
+        return collect(self, pending)
+
+    monkeypatch.setattr(BatchPipelineEngine, "collect", waiting)
+
+
+def _linked_threads(before) -> list:
+    """The live linked workers that were not alive at ``before`` (a set
+    of threads): those an engine of the test left running."""
+    return [t for t in threading.enumerate()
+            if t.name.startswith("linked") and t not in before]
+
+
+def test_linked_phases_on_the_emit_thread(port, worker_ahead):
     """Each chunk of a linked run: the 5' results fetched and the 3' phase
-    run on the emit thread, in its emit, the 3' phase's staged pass and
-    launch inside it; the counters count its rows and its time."""
+    run on the engine's worker (the stage ``linked``), once per chunk and
+    under its number, the 3' phase's staged pass and launch inside it;
+    emit waits for each in ``linked_wait``. A second round (``-n 2``),
+    dispatched in collect, runs its 3' phase on the emit thread. The
+    counters count the rows, the time and the phases that were ready."""
+    before = set(threading.enumerate())
     records, grown = _counted(linked_args(port))
     by_id = {s.id: s for s in records}
     emits = [s for s in records if s.name == "emit"]
     for name in ("linked_front", "linked_back"):
         spans = [s for s in records if s.name == name]
         assert len(spans) == len(emits) > 2, name
-        assert all(s.stage == "emit" and by_id[s.parent].name == "emit"
-                   for s in spans)
+        assert all(s.stage == "linked" and s.parent is None for s in spans)
+        assert sorted(s.chunk for s in spans) == sorted(
+            s.chunk for s in emits)
+    waits = [s for s in records if s.name == "linked_wait"]
+    assert len(waits) == len(emits)
+    assert all(s.stage == "emit" and by_id[s.parent].name == "emit"
+               for s in waits)
     backs = {s.id for s in records if s.name == "linked_back"}
     inside = {s.name for s in records if s.parent in backs}
     assert {"stage", "launch"} <= inside
@@ -285,12 +321,37 @@ def test_linked_phases_on_the_emit_thread(port):
     assert 0 < grown["linked_back_rows"] <= grown["linked_back_windows"]
     assert grown["linked_back_windows"] <= grown["linked_front_rows"] <= 300
     assert grown["linked_back_windows"] >= 250
-    # the counter's two clock reads enclose the span's
+    # the counters' two clock reads enclose the spans'
     span_ns = sum(s.end - s.start for s in records if s.name == "linked_back")
     assert grown["linked_back_ns"] >= span_ns > 0
+    assert grown["linked_back_wait_ns"] >= sum(s.end - s.start for s in waits)
+    assert grown["linked_back_ready"] == len(emits)
+    assert not _linked_threads(before)
+
+    records, grown = _counted(linked_args(port, "-n", "2"))
+    by_id = {s.id: s for s in records}
+    emits = [s for s in records if s.name == "emit"]
+    phases = [s for s in records if s.name == "linked_back"]
+    inline = [s for s in phases if s.stage == "emit"]
+    # each chunk's second round, inside its emit
+    assert len(inline) == len(emits)
+    assert all(by_id[s.parent].name == "emit" for s in inline)
+    assert grown["linked_back_ready"] + len(inline) == len(phases)
+    assert not _linked_threads(before)
 
 
-def test_linked_counters_stay_zero_without_a_linked_task(port):
+def test_linked_counters_stay_zero_without_a_linked_task(port, monkeypatch):
+    started = []
+    start = threading.Thread.start
+
+    def counted(thread):
+        started.append(thread.name)
+        return start(thread)
+
+    monkeypatch.setattr(threading.Thread, "start", counted)
     records, grown = _counted(single_args(port))
     assert grown == dict.fromkeys(LINKED, 0)
-    assert not any(s.name.startswith("linked_") for s in records)
+    assert not any(s.name.startswith("linked") for s in records)
+    # the drive's reader and writer, and no worker
+    assert len(started) == 2, started
+    assert not any(name.startswith("linked") for name in started)

@@ -33,7 +33,9 @@ first call to its last, and reduces the spans of the window's calls:
   allocations (:func:`arena_allocs`);
 - ``idle_gaps_by_thread``: the ten longest stretches with nothing on
   the card, each with the innermost span open over most of it on the
-  reader, main (caller and submit) and emit threads.
+  reader, main (caller and submit) and emit threads and the engines'
+  linked workers (stage ``linked``, whose time between jobs no span
+  covers).
 
 ``--cost PAIRS`` then calls main on the cell's file PAIRS times with the
 tracer on and off in turns (alternating which goes first), outside the
@@ -59,9 +61,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# the stage threads of the drive, and the stages their spans carry
+# the stage threads of the drive and the linked worker, and the stages
+# their spans carry
 THREADS = {"reader": ("reader",), "main": ("caller", "submit"),
-           "emit": ("emit",)}
+           "emit": ("emit",), "linked": ("linked",)}
+# the stages of one thread each in a call (a paired call's two linked
+# workers share theirs)
+STAGES = ("reader", "submit", "emit", "linked")
 # a result_wait this long must meet device activity
 RESULT_WAIT_NS = 100_000
 # the parts of engine_setup
@@ -149,6 +155,16 @@ def staged_share(ctx):
     return xfer["staged_rows"] / xfer["candidates"]
 
 
+def linked_ready_share(ctx):
+    """The share of the linked workers' 3' phases that were done when
+    collect asked for them (``XFER["linked_back_ready"]`` over the
+    ``linked_wait`` spans); None where the program has no such counter
+    or span."""
+    ready = (ctx.get("xfer") or {}).get("linked_back_ready")
+    waits = sum(s.name == "linked_wait" for s in ctx.get("port_spans") or ())
+    return ready / waits if ready is not None and waits else None
+
+
 def arena_allocs(spans, xfer, calls) -> dict:
     """The staging arena's allocations: per call (``XFER["pinned_allocs"]``
     over the window's calls), and the ``stage.alloc`` spans of a chunk
@@ -184,6 +200,8 @@ READERS = {
     "linked_front_ns_per_read": _per_read("linked_front"),
     "linked_back_ns_per_read": _per_read("linked_back"),
     "linked_back_cpu_ns_per_read": _per_read("linked_back", "cpu"),
+    "linked_back_wait_ns_per_read": _per_read("linked_wait"),
+    "linked_ready_share": linked_ready_share,
 }
 # beside them, the wall and CPU time of the stage spans
 WALL = ("read", "parse", "submit", "emit", "wait.emit")
@@ -274,7 +292,7 @@ def thread_cover(parts) -> dict:
     its top-level spans (those whose parent is not on the same thread),
     its ``wait.*`` and its ``queue.*`` spans cover."""
     out = {}
-    for stage in ("reader", "submit", "emit"):
+    for stage in STAGES:
         own = [s for s in parts if s.stage == stage]
         if not own:
             continue
@@ -290,7 +308,7 @@ def cover_gaps(parts) -> dict:
     each in ns, by the spans before and after them (``stage: before ->
     after``)."""
     out = {}
-    for stage in ("reader", "submit", "emit"):
+    for stage in STAGES:
         top = _top_level(parts, stage)
         if not top:
             continue
@@ -354,8 +372,7 @@ def checks(spans, harness_calls, busy, kernel_starts,
                                   wait_faults(spans, busy).items()}
     calls = [p for _, p in sorted(by_call(spans).items())]
     covers = [thread_cover(p) for p in calls]
-    stages = [st for st in ("reader", "submit", "emit")
-              if any(st in c for c in covers)]
+    stages = [st for st in STAGES if any(st in c for c in covers)]
     out["thread_cover_min"] = {
         st: min(c[st] for c in covers if st in c) for st in stages}
     out["thread_cover_mean"] = {
