@@ -583,7 +583,6 @@ def main(argv=None) -> int:
                 "cli_best_reads_per_sec": cli_best,
                 "chunks_in_flight_max": flight_max,
                 "pooled_drive": pooled,
-                "pack2": bp._pack2_on(),
                 "bytes_per_read_h2d": bytes_h2d,
                 "bytes_per_read_d2h": bytes_d2h,
                 "candidates_per_read": (

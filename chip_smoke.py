@@ -152,24 +152,15 @@ Phases, each of which must pass:
    tools/profile_batch_torch.py (its submit split on a line of its own)
    and tools/fuzz_parity_torch.py 20 15000 on the card (0 mismatches).
    Every process the phase starts must exit 0 within its time limit.
-16. the engine's dispatch modes, each configuration through main as
+16. the shared upload: three Illumina 3' adapters (TruSeq, Nextera,
+   small RNA; -e 0.1 -O 3) on 262,144 make_reads reads through main as
    phase 6 (its own launches, shapes, times and bounds, reads/s, idle
-   share) with the transfer counters of its counted run per read and
-   submit's host ns/read split as tools/profile_batch_torch.py splits it
-   (the port's prefilter, encode and launch spans): (a) three
-   Illumina 3' adapters (TruSeq, Nextera, small RNA; -e 0.1 -O 3) on
-   262,144 make_reads reads, with CUTADAPT_TPU_TORCH_SHARED_UPLOAD at 1
-   and 0, both held to one run of the host path; shared, every upload
-   must carry one launch per adapter and feed three DP rows per row,
-   per task one launch, and the bytes per DP row must be about a third
-   of the per-task dispatch's; (b) CUTADAPT_TPU_TORCH_DEVICE_PREFILTER
-   at 1 and 0 on phase 5's flagship file (held to phase 5's host
-   output), phase 8's paired files (held to phase 8's host path) and
-   (a)'s file (also per task, where the shared upload must ship a third
-   of the bytes); on, every window of the stage must be dispatched (XFER
-   candidates plus the per-task host tail's rows, which XFER does not
-   count: the read count, per side the pair count). A kernel variant
-   launched in a counted run and not in its warm-up fails the phase.
+   share), held to the host path, with the transfer counters of its
+   counted run per read and submit's host ns/read split as
+   tools/profile_batch_torch.py splits it (the port's stage and launch
+   spans); every upload must carry one launch per adapter and feed three
+   DP rows per row. A kernel variant launched in the counted run and not
+   in its warm-up fails the phase.
 17. the port's benchmark programs, each a process at its default size
    (bench_torch.py, the counterpart of bench.py: 1,000,000 flagship
    reads; bench_configs_torch.py, of bench_configs.py: 200,000 reads
@@ -199,7 +190,7 @@ launches under "wide_launches"; the golden suites' launches under
 under "byte_lane"; the launches per shard of phase 14's mesh under
 "shard_launches" and by configuration under "mesh"; the scatter kernel's
 entry with phase 14's numbers; each kernel's launches per shard of
-phase 15 (a) under "sharded"; phase 16's configurations under
+phase 15 (a) under "sharded"; phase 16's configuration under
 "dispatch_modes"; phase 17's under "bench"), the seconds of each phase,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -889,7 +880,7 @@ class OrientationTags:
 
 def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
                  outputs=None, files=None, chunk_bytes=None, keep=False,
-                 host=None, env=None, probe=None):
+                 probe=None):
     """Phases 6 to 11: one configuration through cli.main on the card
     under CUTADAPT_TPU_TORCH_BATCH=require at -j 1, held to the port's
     per-read host path (CUTADAPT_TPU_TORCH_BATCH=0): every file the run
@@ -908,11 +899,9 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
     per stage. Returns (recorder, launches (with the wide ones under
     "wide"), reads/s, the median wall time in seconds, the counted run's
     report parts). With ``keep``, the host path's files and report parts
-    stay in HOST_FILES[label] and HOST_REPORTS[label] for a later phase;
-    ``host`` names such a label to hold the runs to instead of running
-    the host path again. ``env`` holds environment variables set for the
-    phase's runs. ``probe`` (phase 16, a DispatchProbe) is entered around
-    the counted run and around each engine's sequential pass."""
+    stay in HOST_FILES[label] and HOST_REPORTS[label] for a later phase.
+    ``probe`` (phase 16, a DispatchProbe) is entered around the counted
+    run and around each engine's sequential pass."""
     import shutil
     import tempfile
 
@@ -927,8 +916,6 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
     saved_chunk = os.environ.pop("CUTADAPT_TPU_TORCH_CHUNK_BYTES", None)
     if chunk_bytes:
         os.environ["CUTADAPT_TPU_TORCH_CHUNK_BYTES"] = str(chunk_bytes)
-    saved_env = {k: os.environ.get(k) for k in env or ()}
-    os.environ.update(env or {})
     if outputs is None:
         def outputs(d):
             outs = ["-o", os.path.join(d, "out.1.fastq")]
@@ -967,17 +954,13 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
                 started[tag] = accel.RUN_TIMES["first_submit"] - t0
             return got, report_parts(rep), dt
 
-        if host is not None:
-            want, want_rep = HOST_FILES[host], HOST_REPORTS[host]
-            log(f"{label}: held to {host}'s host path")
-        else:
-            want, want_rep, dt = run("host", "0")
-            log(f"{label}: {n_reads} reads ({sum(map(len, inputs))} bytes "
-                f"in {len(inputs)} files) through the per-read host path: "
-                f"{dt:.1f} s, {len(want)} files out "
-                f"{ {k: len(v) for k, v in list(want.items())[:8]} }, read "
-                f"counts {want_rep['read_counts']}, base pairs "
-                f"{want_rep['basepair_counts']}")
+        want, want_rep, dt = run("host", "0")
+        log(f"{label}: {n_reads} reads ({sum(map(len, inputs))} bytes "
+            f"in {len(inputs)} files) through the per-read host path: "
+            f"{dt:.1f} s, {len(want)} files out "
+            f"{ {k: len(v) for k, v in list(want.items())[:8]} }, read "
+            f"counts {want_rep['read_counts']}, base pairs "
+            f"{want_rep['basepair_counts']}")
         if keep:
             HOST_FILES[label], HOST_REPORTS[label] = want, want_rep
 
@@ -1061,11 +1044,6 @@ def config_phase(label, args, inputs, task_of, tasks, lanes=(True,),
         log(f"{label}: the run's engine {side + 1}, one sequential pass in "
             f"chunks of {fx.CHUNK_RECORDS} reads, host ns/read by stage "
             f"{ {k: round(v, 1) for k, v in stages.items()} }")
-    for key, value in saved_env.items():
-        if value is None:
-            os.environ.pop(key, None)
-        else:
-            os.environ[key] = value
     log(f"{label}: median {rps:.1f} reads/s through main over "
         f"{TIMED_PASSES} runs")
     STARTUP_MS[label] = started["first"] * 1e3
@@ -2116,8 +2094,7 @@ def shard_phase(data, want_out, want_report, pairs, want8_report, clock_hz,
     return result
 
 
-# phase 16: the engine's dispatch modes (the shared upload, the device-side
-# prefilter)
+# phase 16: the shared upload of three adapters
 THREE_ADAPTERS = {"TruSeq": "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA",
                   "Nextera": "CTGTCTCTTATACACATCT",
                   "small RNA": "TGGAATTCTCGGGTGCCAAGG"}
@@ -2131,20 +2108,16 @@ SPLIT_PARTS = ("stage", "launch")
 
 
 class DispatchProbe:
-    """Phase 16's view of one configuration's counted run through main
-    (``counting``) and of each engine's sequential pass (``splitting``).
-    The counted run: the transfer counters (set to 0 just before it), the
-    uploads (``upload_batch``) and the launches on each, the candidates
-    of each engine's dispatches and the rows of the per-task host tails
-    (each staged pass, ``_stage``), which XFER does not count; the
-    engine's warm-up apart. The pass: submit's host time split as
+    """Phase 16's view of the counted run through main (``counting``) and
+    of each engine's sequential pass (``splitting``). The counted run:
+    the transfer counters (set to 0 just before it), the uploads
+    (``upload_batch``) and the launches on each; the engine's warm-up
+    apart. The pass: submit's host time split as
     tools/profile_batch_torch.py splits it."""
 
     def __init__(self):
         # per thread: ("upload", ptr, rows) / ("launch", ptr, task)
         self.events = {}
-        self.candidates = {}  # id(engine) -> windows dispatched
-        self.host_tail = 0
         self.xfer = None
         self.splits = []  # per engine: ns/read by part
 
@@ -2154,15 +2127,14 @@ class DispatchProbe:
         import cutadapt_tpu_torch.batch_pipeline as bp
 
         probe = self
-        engine = bp.BatchPipelineEngine
 
         def warming():
             return times["device_ready"] is None
 
         @contextlib.contextmanager
         def window():
-            saved = (bp.upload_batch, bp.locate_packed, engine._stage)
-            real_upload, real_locate, real_stage = saved
+            saved = (bp.upload_batch, bp.locate_packed)
+            real_upload, real_locate = saved
 
             def upload(enc, lengths, device):
                 out = real_upload(enc, lengths, device)
@@ -2176,21 +2148,13 @@ class DispatchProbe:
                                tables.spec.reference)
                 return real_locate(enc, lengths, tables, pack2, wide=wide)
 
-            def stage(eng, *args, **kwargs):
-                staged = real_stage(eng, *args, **kwargs)
-                probe.candidates[id(eng)] = (
-                    probe.candidates.get(id(eng), 0) + len(staged.sel))
-                probe.host_tail += staged.host_tail
-                return staged
-
             bp.upload_batch, bp.locate_packed = upload, locate
-            engine._stage = stage
             bp.reset_xfer_counters()
             try:
                 yield
             finally:
                 probe.xfer = bp.xfer_counters()
-                bp.upload_batch, bp.locate_packed, engine._stage = saved
+                bp.upload_batch, bp.locate_packed = saved
 
         return window()
 
@@ -2239,20 +2203,30 @@ class DispatchProbe:
         return out
 
 
-def dispatch_cell(label, args, inputs, task_of, tasks, lanes, host, env,
-                  clock_hz, sms, keep=False):
-    """One configuration of phase 16 through config_phase with ``env``,
-    held to ``host``'s host path (or, with ``keep``, to its own): reads/s,
-    the counted run's transfer counters per read, launches by task and
-    lane, ms per launch shape beside its bound, submit's host ns/read
-    split, the idle share. A kernel variant launched in the counted run
-    that its warm-up did not launch fails the phase (a launch of another
-    batch size or row width needs no compile)."""
+def dispatch_modes_phase(clock_hz, sms) -> dict:
+    """Phase 16: three Illumina adapters through the shared upload, held
+    to the host path: reads/s, the counted run's transfer counters per
+    read, launches by task and lane, ms per launch shape beside its
+    bound, submit's host ns/read split, the idle share. Every upload must
+    carry one launch per adapter, and the DP rows must be three per
+    uploaded row. A kernel variant launched in the counted run that its
+    warm-up did not launch fails the phase (a launch of another batch
+    size or row width needs no compile)."""
+    import torch_fixtures as fx
+
+    label = "three adapters, shared upload"
+    name_of = {seq: name for name, seq in THREE_ADAPTERS.items()}
+    t0 = time.perf_counter()
+    three = fx.make_reads(N_THREE_ADAPTER_READS, THREE_ADAPTER_SEED,
+                          list(THREE_ADAPTERS.values()))
+    log(f"shared upload: {N_THREE_ADAPTER_READS} reads of 40-100 bp, 30% "
+        f"with one of {list(THREE_ADAPTERS)}, generated "
+        f"({time.perf_counter() - t0:.1f} s)")
     probe = DispatchProbe()
     rec, launches, rps, wall, _ = config_phase(
-        label, args, inputs, task_of, tasks, lanes=lanes, keep=keep,
-        host=host, env=env, probe=probe)
-    n = inputs[0].count(b"\n") // 4
+        label, THREE_ADAPTER_ARGS, [three],
+        lambda tables: name_of[tables.spec.reference], list(THREE_ADAPTERS),
+        probe=probe)
     late = rec.variants - rec.warm_variants
     if late:
         fail(f"{label}: kernel variants first launched after the warm-up: "
@@ -2269,18 +2243,18 @@ def dispatch_cell(label, args, inputs, task_of, tasks, lanes, host, env,
         per_lane[lane_name(pack2)] = dict(
             launches=launches[lane_name(pack2)],
             warmup_launches=rec.warmup[lane_name(pack2)],
-            by_task={t: rec.launches(pack2, t) for t in tasks},
+            by_task={t: rec.launches(pack2, t) for t in THREE_ADAPTERS},
             run_kernel_ms=nums["run_kernel_ms"],
             per_shape=[{key: d[key] for key in PER_SHAPE_KEYS}
                        for d in nums["per_shape"]])
     uploads = probe.uploads()
     split = [{part: sp[part] for part in SPLIT_PARTS} for sp in probe.splits]
+    n = N_THREE_ADAPTER_READS
     cell = dict(
-        reads_per_sec=rps, wall_s=wall, env=env,
+        reads_per_sec=rps, wall_s=wall,
         xfer_per_read={k: v / n for k, v in probe.xfer.items()},
-        xfer=probe.xfer, host_tail_rows=probe.host_tail,
-        candidates_per_engine=list(probe.candidates.values()),
-        uploads=len(uploads), upload_rows=sum(r for r, _ in uploads),
+        xfer=probe.xfer, uploads=len(uploads),
+        upload_rows=sum(r for r, _ in uploads),
         launches_per_upload=sorted({len(t) for _, t in uploads}),
         lanes=per_lane, submit_split_ns_per_read=split,
         device_ms=device_ms, idle_share=1 - device_ms / 1e3 / wall,
@@ -2289,129 +2263,24 @@ def dispatch_cell(label, args, inputs, task_of, tasks, lanes, host, env,
         f"{cell['xfer_per_read']['h2d_bytes']:.4f} B, D2H "
         f"{cell['xfer_per_read']['d2h_bytes']:.4f} B, candidates "
         f"{cell['xfer_per_read']['candidates']:.6f}, DP rows "
-        f"{cell['xfer_per_read']['dp_rows']:.6f} (host-tail rows "
-        f"{probe.host_tail}); {len(uploads)} uploads of "
-        f"{cell['upload_rows']} rows, launches per upload "
+        f"{cell['xfer_per_read']['dp_rows']:.6f}; {len(uploads)} uploads "
+        f"of {cell['upload_rows']} rows, launches per upload "
         f"{cell['launches_per_upload']}; submit ns/read by part "
         + "; ".join(f"engine {i + 1} "
                     + ", ".join(f"{k} {v:.1f}" for k, v in sp.items())
                     for i, sp in enumerate(split))
         + f"; device {device_ms:.4f} ms against a median wall of "
         f"{wall:.3f} s: idle share {cell['idle_share']:.6f}")
-    return cell, uploads
-
-
-def dispatch_modes_phase(flagship, flag_out, flag_report, pairs, clock_hz,
-                         sms) -> dict:
-    """Phase 16: (a) three Illumina adapters with the shared upload on
-    and off, (b) the device-side prefilter on and off over the flagship
-    file, phase 8's paired files and (a)'s file (with the shared upload
-    on and off there too)."""
-    import torch_fixtures as fx
-
-    name_of = {seq: name for name, seq in THREE_ADAPTERS.items()}
-    t0 = time.perf_counter()
-    three = fx.make_reads(N_THREE_ADAPTER_READS, THREE_ADAPTER_SEED,
-                          list(THREE_ADAPTERS.values()))
-    log(f"dispatch modes: {N_THREE_ADAPTER_READS} reads of 40-100 bp, 30% "
-        f"with one of {list(THREE_ADAPTERS)}, generated "
-        f"({time.perf_counter() - t0:.1f} s)")
-    HOST_FILES["flagship"] = {"out.1.fastq": flag_out}
-    # config_phase's runs number their unnamed adapter 1; phase 5's runs
-    # counted on
-    HOST_REPORTS["flagship"] = json.loads(json.dumps(flag_report))
-    for adapter in HOST_REPORTS["flagship"]["adapters_read1"]:
-        adapter["name"] = "1"
-    cells = {}
-
-    def cell(key, label, args, inputs, task_of, tasks, lanes, host, shared,
-             prefilter):
-        env = {"CUTADAPT_TPU_TORCH_SHARED_UPLOAD": shared,
-               "CUTADAPT_TPU_TORCH_DEVICE_PREFILTER": prefilter}
-        cells[key], uploads = dispatch_cell(
-            label, args, inputs, task_of, tasks, lanes, host, env, clock_hz,
-            sms, keep=host is None)
-        return uploads
-
-    three_task = lambda tables: name_of[tables.spec.reference]  # noqa: E731
-    three_cell = (THREE_ADAPTER_ARGS, [three], three_task,
-                  list(THREE_ADAPTERS), (True,))
-    # (a) the shared upload on and off, the host prefilter
-    ups = cell("three_shared", "three adapters, shared upload",
-               *three_cell, None, "1", "0")
-    host3 = "three adapters, shared upload"
-    for rows, launched in ups:
+    for rows, launched in uploads:
         if sorted(launched) != sorted(THREE_ADAPTERS.values()):
-            fail(f"three adapters, shared upload: an upload of {rows} rows "
-                 f"launched {len(launched)} kernels, not one per adapter")
-    shared = cells["three_shared"]
-    if 3 * shared["upload_rows"] != shared["xfer"]["dp_rows"]:
-        fail(f"three adapters, shared upload: {shared['upload_rows']} "
-             f"uploaded rows for {shared['xfer']['dp_rows']} DP rows")
-    ups = cell("three_per_task", "three adapters, per task", *three_cell,
-               host3, "0", "0")
-    if any(len(launched) != 1 for _, launched in ups):
-        fail("three adapters, per task: an upload launched more than once")
-    # (b) the device-side prefilter: every window a candidate
-    cell("three_prefilter", "three adapters, device prefilter",
-         *three_cell, host3, "1", "1")
-    cell("three_prefilter_per_task",
-         "three adapters, device prefilter, per task", *three_cell,
-         host3, "0", "1")
-    flag = (["-a", fx.ADAPTER, "-e", "0.1", "-O", "3"], [flagship],
-            lambda tables: "3'", ["3'"], (True,), "flagship")
-    cell("flagship", "flagship", *flag, "1", "0")
-    cell("flagship_prefilter", "flagship, device prefilter", *flag, "1", "1")
-    paired = (["-a", fx.TRUSEQ_R1, "-A", fx.TRUSEQ_R2, "-q", "20", "-m",
-               "20"], list(pairs),
-              lambda tables: "R1" if tables.spec.reference == fx.TRUSEQ_R1
-              else "R2", ["R1", "R2"], (True,), "paired")
-    cell("paired", "paired", *paired, "1", "0")
-    cell("paired_prefilter", "paired, device prefilter", *paired, "1", "1")
-    # the checks of the counters
-    n_flag = flagship.count(b"\n") // 4
-    n_pairs = pairs[0].count(b"\n") // 4
-    for key, want, per_engine in (
-            ("three_prefilter", N_THREE_ADAPTER_READS,
-             [N_THREE_ADAPTER_READS]),
-            ("flagship_prefilter", n_flag, [n_flag]),
-            ("paired_prefilter", 2 * n_pairs, [n_pairs, n_pairs])):
-        c = cells[key]
-        if c["xfer"]["candidates"] + c["host_tail_rows"] != want:
-            fail(f"dispatch modes {key}: {c['xfer']['candidates']} "
-                 f"candidates (XFER) and {c['host_tail_rows']} host-tail "
-                 f"rows, not the {want} windows of the stage")
-        if c["candidates_per_engine"] != per_engine:
-            fail(f"dispatch modes {key}: windows dispatched per engine "
-                 f"{c['candidates_per_engine']}, not {per_engine}")
-    for key, c in cells.items():
-        if c["launches_per_upload"] != ([3] if key in (
-                "three_shared", "three_prefilter") else [1]):
-            fail(f"dispatch modes {key}: launches per upload "
-                 f"{c['launches_per_upload']}")
-    ratios = {}
-    for on, off in (("three_shared", "three_per_task"),
-                    ("three_prefilter", "three_prefilter_per_task")):
-        a, b = cells[on]["xfer"], cells[off]["xfer"]
-        ratios[on] = dict(
-            h2d=a["h2d_bytes"] / b["h2d_bytes"],
-            h2d_per_dp_row=(a["h2d_bytes"] / a["dp_rows"])
-            / (b["h2d_bytes"] / b["dp_rows"]),
-            candidates=a["candidates"] / b["candidates"],
-            dp_rows=a["dp_rows"] / b["dp_rows"])
-        log(f"dispatch modes: {on} against {off}: "
-            + ", ".join(f"{k} {v:.4f}x" for k, v in ratios[on].items()))
-        # one upload feeds three launches: a third of the bytes per DP row
-        if abs(ratios[on]["h2d_per_dp_row"] - 1 / 3) > 0.08:
-            fail(f"dispatch modes: H2D per DP row with the shared upload is "
-                 f"{ratios[on]['h2d_per_dp_row']:.4f}x the per-task "
-                 f"dispatch's, not about a third")
-    # every window a candidate of every task: a third of the bytes in all
-    if abs(ratios["three_prefilter"]["h2d"] - 1 / 3) > 0.02:
-        fail(f"dispatch modes: with the device prefilter, the shared upload "
-             f"ships {ratios['three_prefilter']['h2d']:.4f}x the per-task "
-             f"H2D bytes, not a third")
-    return dict(cells=cells, ratios=ratios)
+            fail(f"{label}: an upload of {rows} rows launched "
+                 f"{len(launched)} kernels, not one per adapter")
+    if cell["launches_per_upload"] != [3]:
+        fail(f"{label}: launches per upload {cell['launches_per_upload']}")
+    if 3 * cell["upload_rows"] != cell["xfer"]["dp_rows"]:
+        fail(f"{label}: {cell['upload_rows']} uploaded rows for "
+             f"{cell['xfer']['dp_rows']} DP rows")
+    return dict(cells={"three_shared": cell})
 
 
 # phase 17: the port's benchmark programs, each a process at its default
@@ -2868,12 +2737,10 @@ def main() -> int:
     shard15 = shard_phase(data, main_out, cli_runs["report"], pairs, rep8,
                           clock_mhz * 1e6, sms)
     phase_done("15 sharding")
-    # 16. the engine's dispatch modes: the shared upload and the device-side
-    # prefilter
-    modes16 = dispatch_modes_phase(data, main_out, cli_runs["report"], pairs,
-                                   clock_mhz * 1e6, sms)
     del pairs
-    phase_done("16 dispatch modes")
+    # 16. the shared upload of three adapters
+    modes16 = dispatch_modes_phase(clock_mhz * 1e6, sms)
+    phase_done("16 shared upload")
     # 17. the port's benchmark programs at their default sizes
     bench17 = bench_phase()
     phase_done("17 bench")

@@ -322,7 +322,6 @@ def _translate_tasks(cutter):
 def _translate_modifier(mod, has_cutter):
     """Return (stage, cutter or None) for an eligible single-end
     modifier: a host stage, or the one adapter stage."""
-    from . import native
     from .batch_pipeline import (
         AdapterStage, CutStage, NEndStage, NextseqStage, PolyAStage,
         QualityStage, RevcompStage, ShortenStage,
@@ -336,13 +335,6 @@ def _translate_modifier(mod, has_cutter):
         return CutStage(mod.length, mod), None
     if isinstance(mod, Shortener):
         return ShortenStage(mod.length, mod), None
-    if isinstance(mod, (NEndTrimmer, QualityTrimmer, NextseqQualityTrimmer,
-                        PolyATrimmer)) and not native.AVAILABLE:
-        # the engine's byte scans are native-only
-        raise _Refused(
-            f"modifier {type(mod).__name__} needs the native host library, "
-            "which did not build"
-        )
     if isinstance(mod, NEndTrimmer):
         return NEndStage(mod), None
     if isinstance(mod, QualityTrimmer):
@@ -362,11 +354,6 @@ def _translate_modifier(mod, has_cutter):
                 f"--revcomp with the adapter action {inner.action!r} has "
                 "no engine form"
             )
-        if not native.AVAILABLE:
-            raise _Refused(
-                "--revcomp needs the native host library, which did not "
-                "build"
-            )
         stage = RevcompStage(
             _translate_tasks(inner), times=inner.times, modifier=mod,
             suffix=mod._suffix, action=inner.action,
@@ -379,14 +366,6 @@ def _translate_modifier(mod, has_cutter):
         )
     if has_cutter:
         raise _Refused("a second adapter-cutting stage is not ported yet")
-    supported = ("trim", None, "retain", "crop")
-    if native.AVAILABLE:  # transform assembly is native-only
-        supported += ("mask", "lowercase")
-    if mod.action not in supported:
-        raise _Refused(
-            f"the adapter action {mod.action!r} needs the native host "
-            "library, which did not build"
-        )
     stage = AdapterStage(
         _translate_tasks(mod), times=mod.times, modifier=mod,
         action=mod.action,
@@ -403,17 +382,11 @@ _RC_ACTIONS = ("trim", None, "mask", "lowercase")
 
 
 def _translate_predicate(pred):
-    from . import native
     from .predicates import Predicate
 
     if not isinstance(pred, Predicate) or not pred.kind:
         raise _Refused(
             f"filter {type(pred).__name__} has no engine form"
-        )
-    if pred.needs_native_scan and not native.AVAILABLE:
-        raise _Refused(
-            f"filter {pred.kind} needs the native host library, which did "
-            "not build"
         )
     return (pred.kind, pred.threshold)
 
@@ -1409,10 +1382,16 @@ def try_run_accelerated(pipeline, infiles, progress) -> Optional[Statistics]:
     (CUTADAPT_TPU_TORCH_BATCH=0, or a configuration the engine does not
     express). Every -j drives the engine with _pipelined_drive.
     """
+    from . import native
     from .pipeline import PairedEndPipeline, SingleEndPipeline
 
     if os.environ.get("CUTADAPT_TPU_TORCH_BATCH") == "0":
         return None  # the host path by request, not a fallback
+    if not native.AVAILABLE:
+        # submit's staged pass, the byte scans of the host stages and
+        # filters, assembly and the paired name check are native code
+        return _fallback("the engine needs the native host library "
+                         "(native/hostops.cpp), which did not build")
     if isinstance(pipeline, SingleEndPipeline):
         return _run_single(pipeline, infiles, progress)
     if isinstance(pipeline, PairedEndPipeline):
@@ -1703,7 +1682,6 @@ def _translate_paired(pipeline, interleaved=False, fasta=False):
     Trailing per-side name edits and --zero-cap, a trailing --rename,
     the side files and paired or combinatorial demultiplexing ride
     along."""
-    from . import native
     from .batch_pipeline import (
         AdapterStage, AdapterTask, NEndStage, NextseqStage, PolyAStage,
         QualityStage,
@@ -1770,11 +1748,6 @@ def _translate_paired(pipeline, interleaved=False, fasta=False):
                     raise _Refused(
                         f"--revcomp with the adapter action {c.action!r} "
                         "has no engine form"
-                    )
-                if c.action in _TRANSFORM_MODES and not native.AVAILABLE:
-                    raise _Refused(
-                        f"the adapter action {c.action!r} needs the native "
-                        "host library, which did not build"
                     )
                 rc_stages.append(AdapterStage(
                     _translate_tasks(c), times=c.times, modifier=c,
@@ -2569,9 +2542,6 @@ def _run_paired(pipeline, infiles, progress) -> Optional[Statistics]:
             return _fallback("interleaved input is not parseable FASTQ/FASTA")
     elif fmt1 not in ("fastq", "fasta") or _input_format(f2) != fmt1:
         return _fallback("paired inputs are not matching FASTQ/FASTA files")
-    if not native.AVAILABLE:
-        return _fallback("the paired name check needs the native host "
-                         "library, which did not build")
     fasta_in = fmt1 == "fasta"
     try:
         translated = _translate_paired(pipeline, interleaved_in,

@@ -52,30 +52,17 @@ into the mesh's equal row slices, slice i uploaded to and launched on
 (:class:`ShardedResult`); the dispatch sizes are padded to the mesh
 (:func:`mesh_padded`), so every batch divides.
 
-Two dispatch modes change the work, never the results (the k-mer
-prefilter is one-sided: a read it rejects cannot align, so the DP only
-adds found=False rows for it):
-
-- the shared upload (on unless CUTADAPT_TPU_TORCH_SHARED_UPLOAD=0, and
-  off under a mesh of more than one shard, as in the reference): the
-  kernel tasks of a stage that read one encoding of the windows form a
-  group (:func:`_upload_key`). A group takes the union of its members'
-  prefilter candidates, splits lanes, encodes and uploads each dispatch
-  batch once and launches each member's kernel on the batch on the
-  device (:func:`launch_batch`). 2-bit/4-bit tasks group by
-  orientation and query-class LUT ("cls": every plain-ACGT adapter set
-  is one group), byte-lane tasks by wildcard flags and orientation.
-  One difference from the reference: with CUTADAPT_TPU_TORCH_PACK2=0
-  (or no native library) the reference puts the tasks of at most 16
-  query classes in its byte group and ships one byte per base; the
-  port's byte lane takes only specs of more than 16 classes, so these
-  tasks group by orientation and class LUT ("pack4") and share a 4-bit
-  upload, half a byte per base. Candidates and DP rows are the
-  reference's wherever the members share one class LUT (any plain-ACGT
-  set); H2D bytes are smaller.
-- the device-side prefilter (CUTADAPT_TPU_TORCH_DEVICE_PREFILTER=1,
-  off by default): no host k-mer scan; every window is a candidate and
-  the DP rejects the reads.
+The shared upload (off under a mesh of more than one shard, as in the
+reference): the kernel tasks of a stage that read one encoding of the
+windows form a group (:func:`_upload_key`). A group takes the union of
+its members' prefilter candidates, splits lanes, encodes and uploads
+each dispatch batch once and launches each member's kernel on the batch
+on the device (:func:`launch_batch`). 2-bit/4-bit tasks group by
+orientation and query-class LUT ("cls": every plain-ACGT adapter set is
+one group), byte-lane tasks by wildcard flags and orientation. It
+changes the work, never the results: the k-mer prefilter is one-sided
+(a read it rejects cannot align), so a member's kernel only adds
+found=False rows for the other members' candidates.
 
 Reference semantics: modifiers at cutadapt:src/cutadapt/modifiers.py,
 selection order of MultipleAdapters.match_to at adapters.py:1265-1286.
@@ -103,6 +90,10 @@ from .parallel.mesh import on_device
 # query coordinates in the packed result are 14-bit: longer windows take
 # the wide result
 _QS_BITS = 14
+# decomposition tail: a lane remainder of at most this many rows after
+# the lane's full device batches goes to the C++ scalar aligner instead
+# of a padded min_dp_batch dispatch (0: never)
+_SCALAR_TAIL = 512
 
 # Wire/work accounting (always on, one int add per dispatch): bytes
 # host->device and device->host, candidates and DP rows (padded batch
@@ -223,27 +214,10 @@ def xfer_counters() -> dict:
     return dict(XFER)
 
 
-def _pack2_on() -> bool:
-    """2-bit candidate packing (reads with N/IUPAC bytes split off to
-    the 4-bit or host-scalar lane). CUTADAPT_TPU_TORCH_PACK2=0 disables."""
-    return os.environ.get("CUTADAPT_TPU_TORCH_PACK2", "1") != "0"
-
-
-def _device_prefilter_on() -> bool:
-    """CUTADAPT_TPU_TORCH_DEVICE_PREFILTER=1: skip the host's k-mer scan
-    and send every window to the DP, which rejects the reads the scan
-    would have (the prefilter is one-sided, so the output is the same).
-    More wire bytes and DP rows for fewer host cycles. Off by default."""
-    return os.environ.get("CUTADAPT_TPU_TORCH_DEVICE_PREFILTER") == "1"
-
-
 def _shared_upload_on() -> bool:
-    """One upload per task group of a stage (:func:`_upload_key`):
-    CUTADAPT_TPU_TORCH_SHARED_UPLOAD=0 disables, and so does a mesh of
-    more than one shard, where each task dispatches on its own (the
-    reference's rule)."""
-    if os.environ.get("CUTADAPT_TPU_TORCH_SHARED_UPLOAD", "1") == "0":
-        return False
+    """One upload per task group of a stage (:func:`_upload_key`), except
+    under a mesh of more than one shard, where each task dispatches on
+    its own (the reference's rule)."""
     mesh = _ACTIVE_MESH
     return mesh is None or mesh.size <= 1
 
@@ -254,16 +228,13 @@ def _upload_key(task) -> Optional[tuple]:
     and linked tasks). "cls": 2-bit/4-bit tasks with the same
     orientation and query-class LUT; "byte": byte-lane tasks with the
     same wildcard flags and orientation (their ``query_lut`` depends on
-    nothing else); "pack4": the 4-bit tasks of a run without the 2-bit
-    lane (CUTADAPT_TPU_TORCH_PACK2=0 or no native library), keyed as
-    "cls"."""
+    nothing else)."""
     if task.comparer or task.indexed or task.kind == "linked":
         return None
     if task.byte:
         return ("byte", task.spec.wildcard_ref, task.spec.wildcard_query,
                 task.reverse)
-    lane = "cls" if native.AVAILABLE and _pack2_on() else "pack4"
-    return (lane, task.reverse, task.lut.tobytes())
+    return ("cls", task.reverse, task.lut.tobytes())
 
 
 def _exact_wire_on(device: torch.device) -> bool:
@@ -277,14 +248,6 @@ def _exact_wire_on(device: torch.device) -> bool:
     if env is not None:
         return env != "0"
     return device.type == "cuda"
-
-
-def _scalar_tail_max() -> int:
-    """Decomposition-tail threshold: a lane remainder of at most this
-    many rows after the full device batches goes to the C++ scalar
-    aligner instead of a padded min_dp_batch dispatch. 0 disables;
-    applies only after at least one full device batch."""
-    return int(os.environ.get("CUTADAPT_TPU_TORCH_SCALAR_TAIL", 512))
 
 
 def _eff_width(bmax: int, width: int, pack2: Optional[bool]) -> int:
@@ -511,7 +474,7 @@ class AdapterTask:
         self.byte = info is None
         self.lut = query_lut(self.spec) if self.byte else info[0]
         self.tables = make_tables(self.spec)
-        if native.AVAILABLE and isinstance(adapter.kmer_finder, KmerFinder):
+        if isinstance(adapter.kmer_finder, KmerFinder):
             self.pf_tables = native.PrefilterTables(adapter.kmer_finder)
         self._scalar = None  # lazy C++ per-read aligner (dirty lane)
 
@@ -623,7 +586,7 @@ class AdapterTask:
         sc = np.zeros(n, np.int32)
         sub = np.zeros(n, np.int32)
         slow = np.arange(n)
-        if self._fast_len is not None and native.AVAILABLE and n:
+        if self._fast_len is not None and n:
             from .ops.tables import UPPER_LUT
 
             L = self._fast_len
@@ -1012,6 +975,7 @@ class BatchPipelineEngine:
         qual_cap_base: Optional[int] = None,
         device=None,
     ):
+        native.require("the batch engine")
         self.device = resolve_device(device)
         for s in stages:
             if not isinstance(s, (AdapterStage,) + _HOST_STAGES):
@@ -1149,17 +1113,15 @@ class BatchPipelineEngine:
         stage."""
         width = self._bucket_length(max_len)
         wide = self.want_ref_coords or width >= (1 << _QS_BITS)
-        packed = (True, False) if native.AVAILABLE and _pack2_on() else (False,)
         if tasks is None:
             tasks = [t for stage in self.stages
                      if isinstance(stage, AdapterStage) for t in stage.tasks]
         rows = mesh_padded(self.min_dp_batch)
         for task in tasks:
             for t in task.kernel_tasks():
-                for p2 in (None,) if t.byte else packed:
-                    w_in = width if p2 is None else (
-                        width // 4 if p2 else width // 2)
-                    enc = self._host_tensor(np.zeros((rows, w_in), np.uint8))
+                for p2 in (None,) if t.byte else (True, False):
+                    enc = self._host_tensor(np.zeros(
+                        (rows, staging.row_bytes(width, p2)), np.uint8))
                     lens = self._host_tensor(
                         np.zeros(rows, np.int32 if wide else np.int16)
                     )
@@ -1222,10 +1184,8 @@ class BatchPipelineEngine:
         """The k-mer prefilter of ``tasks`` for the staged pass (a
         :class:`native.PrefilterSet`, made once per set of tasks), or
         None where every window is a candidate: a task without tables
-        (MockKmerFinder, native library unavailable) or the device-side
-        prefilter."""
-        if (_device_prefilter_on() or not native.AVAILABLE
-                or any(t.pf_tables is None for t in tasks)):
+        (MockKmerFinder)."""
+        if any(t.pf_tables is None for t in tasks):
             return None
         key = tuple(id(t) for t in tasks)
         got = self._pf_sets.get(key)
@@ -1249,9 +1209,8 @@ class BatchPipelineEngine:
             enc = staging.encode_rows(chunk.buf, starts, lens, sel, len(sel),
                                       m_w, task.lut, task.reverse, None)
             return sel, [("host",) + task.run_comparer(enc, lens)]
-        tail_max = _scalar_tail_max() if native.AVAILABLE else 0
         staged = self._stage([task], chunk, starts, lens, width,
-                             host_tail_ok=True, tail_max=tail_max)
+                             host_tail_ok=True, tail_max=_SCALAR_TAIL)
         (futures,) = self._launch_staged([task], chunk, staged)
         if staged.host_tail:
             base = len(staged.sel) - staged.host_tail
@@ -1271,7 +1230,7 @@ class BatchPipelineEngine:
         launched once per member, and the 2-bit lane's scalar tail run per
         member (reference batch_pipeline.py:1109-1365). Returns (sel, one
         futures list per member), positions into starts."""
-        tail_max = _scalar_tail_max() if key[0] == "cls" else 0
+        tail_max = _SCALAR_TAIL if key[0] == "cls" else 0
         staged = self._stage(tasks, chunk, starts, lens, width,
                              host_tail_ok=False, tail_max=tail_max)
         return staged.sel, self._launch_staged(tasks, chunk, staged)
@@ -1280,7 +1239,7 @@ class BatchPipelineEngine:
                tail_max) -> "StagedPass":
         """Submit's staged pass (:mod:`staging`) for ``tasks`` over the
         windows (starts, lens): the candidates and their lanes
-        (:func:`staging.select`, with the first task's LUT and
+        (:func:`native.stage_select`, with the first task's LUT and
         orientation); the lanes cut into ``_dp_sizes`` batches, a lane
         remainder of at most ``tail_max`` rows after its full batches
         left to the C++ scalar aligner instead of a padded batch; every
@@ -1288,28 +1247,29 @@ class BatchPipelineEngine:
         (:func:`staging.encode`).
 
         The lanes: a byte-lane task sends every candidate to the byte
-        lane. With the 2-bit lane on, ACGT-class-only windows ride the
-        2-bit encoding and come first; the rare N/IUPAC-containing
-        windows take the 4-bit lane, or, when few and ``host_tail_ok``,
-        the scalar aligner (zero wire). In exact-wire mode each lane is
-        length-sorted (descending), so the batches after the first get
-        progressively narrower widths."""
+        lane. Otherwise ACGT-class-only windows ride the 2-bit encoding
+        and come first; the rare N/IUPAC-containing windows take the
+        4-bit lane, or, when few and ``host_tail_ok``, the scalar aligner
+        (zero wire). In exact-wire mode each lane is length-sorted
+        (descending), so the batches after the first get progressively
+        narrower widths."""
         span = tracing.begin("stage", cpu=True)
         try:
             task = tasks[0]
-            clean = not task.byte and native.AVAILABLE and _pack2_on()
+            clean = not task.byte
             exact = _exact_wire_on(self.device)
             sel, c_starts, c_lens, (n_clean, n_other, tail, longest) = (
-                staging.select(chunk.buf, starts, lens,
-                               self._prefilter(tasks),
-                               task.lut if clean else None, task.reverse,
-                               width, host_tail_ok, exact))
+                native.stage_select(chunk.buf, starts, lens,
+                                    self._prefilter(tasks),
+                                    task.lut if clean else None,
+                                    task.reverse, width, host_tail_ok,
+                                    exact))
             staged = StagedPass(sel, c_starts, c_lens)
             n = len(sel)
             if n == 0:
                 return staged
             if not clean:
-                lanes = [(n, None if task.byte else False)]
+                lanes = [(n, None)]
             elif n_other == 0:
                 lanes = [(n, True)]
             elif n_clean == 0:

@@ -8,8 +8,9 @@ then detects whether *any* pattern occurs in its search window.
 
 Host implementation of the reference's prefilter
 (cutadapt:src/cutadapt/_kmer_finder.pyx:66-257); the batch
-path runs the same scan in C++ (native/hostops.cpp kmer_prefilter)
-so rejected reads never cross the host-device link.
+path runs the same scan in C++ inside submit's staged pass
+(native/hostops.cpp stage_select), so rejected reads never cross the
+host-device link.
 """
 
 from typing import List, Optional, Tuple

@@ -15,7 +15,7 @@ the aligner rejects, but must never stay silent on a read it would
 accept (tests/test_kmer_heuristic.py checks this property against the
 aligner). Same construction as the reference heuristic
 (cutadapt:src/cutadapt/kmer_heuristic.py:6-164); the scan
-itself runs in C++ on the batch path (native kmer_prefilter).
+itself runs in C++ on the batch path (native/hostops.cpp stage_select).
 """
 
 import io

@@ -3,8 +3,14 @@ ctypes loader for the native host-ops library.
 
 The C++ source is compiled on first import (g++, ~1 s) and cached next
 to the source keyed by a content hash, so repeated runs and the test
-suite never recompile. If no compiler is available the package still
-works — callers check ``AVAILABLE`` and fall back to the NumPy paths.
+suite never recompile. If no compiler is available, ``AVAILABLE`` stays
+False. The batch engine then does not run: ``accel.try_run_accelerated``
+sends the run to the host path (an error under
+CUTADAPT_TPU_TORCH_BATCH=require), and ``BatchPipelineEngine`` refuses
+to be built (:func:`require`). The host path's callers keep their
+Python or numpy forms: ``io.chunks`` (parse and assembly of a chunk),
+``align.Aligner`` (the per-read DP) and ``kmer_finder.KmerFinder`` (the
+k-mer scan).
 """
 
 import ctypes
@@ -20,6 +26,14 @@ _SRC = os.path.join(_HERE, "hostops.cpp")
 
 AVAILABLE = False
 _lib = None
+
+
+def require(what: str) -> None:
+    """Raise RuntimeError, naming ``what``, where the library did not
+    build."""
+    if not AVAILABLE:
+        raise RuntimeError(f"{what} needs the native host library "
+                           "(native/hostops.cpp), which did not build")
 
 
 def _so_path() -> str:
@@ -398,6 +412,11 @@ def kmer_prefilter(
     buf: np.ndarray, seq_start: np.ndarray, seq_len: np.ndarray,
     tables: PrefilterTables, reverse: bool = False,
 ) -> np.ndarray:
+    """1 for each record whose window any k-mer of ``tables`` hits (back to
+    front where ``reverse``), else 0. The engine's prefilter is
+    :func:`stage_select`; this one-table scan is kept as the independent
+    oracle of tests/test_torch_dispatch_modes.py's
+    test_group_members_reject_each_others_candidates."""
     n_records = len(seq_start)
     out = np.empty(n_records, np.uint8)
     _lib.kmer_prefilter(

@@ -24,8 +24,6 @@ class Predicate(ABC):
 
     #: stable identifier; also the batch-filter dispatch key
     kind: str = ""
-    #: True when the vectorized form needs the native (C++) scans
-    needs_native_scan: bool = False
     #: the kind's single numeric parameter (None if parameterless)
     threshold = None
 
@@ -73,7 +71,6 @@ class TooManyExpectedErrors(Predicate):
     quality values; cf. usearch's -fastq_maxee) exceeds a threshold."""
 
     kind = "too_many_expected_errors"
-    needs_native_scan = True
 
     def __init__(self, max_errors: float):
         self.threshold = max_errors
@@ -87,7 +84,6 @@ class TooHighAverageErrorRate(Predicate):
     (length-normalized variant for mixed-length inputs)."""
 
     kind = "too_high_average_error_rate"
-    needs_native_scan = True
 
     def __init__(self, max_error_rate: float):
         if not 0.0 < max_error_rate < 1.0:
@@ -107,7 +103,6 @@ class TooManyN(Predicate):
     is >= 1, a fraction of the read length when it is < 1."""
 
     kind = "too_many_n"
-    needs_native_scan = True
 
     def __init__(self, count: float):
         assert count >= 0
@@ -125,7 +120,6 @@ class CasavaFiltered(Predicate):
     field of the form ``x:Y:x:x``)."""
 
     kind = "casava_filtered"
-    needs_native_scan = True
 
     def test(self, read, info) -> bool:
         comment = read.name.partition(" ")[2]

@@ -6,17 +6,17 @@ A dispatch (one kernel task, or one upload group of tasks) over a
 chunk's windows takes two native calls, each one run of C++ with the
 GIL released (``native/hostops.cpp``):
 
-- :func:`select`: the k-mer prefilter of every task (the union for a
-  group; none under the device prefilter), the candidates compacted,
-  the 2-bit clean test and the lane split, and in exact-wire mode each
-  lane ordered longest first;
+- :func:`native.stage_select`: the k-mer prefilter of every task (the
+  union for a group; none for a task without prefilter tables), the
+  candidates compacted, the 2-bit clean test and the lane split, and in
+  exact-wire mode each lane ordered longest first;
 - :func:`encode`: every dispatch batch of every lane, at its own row
   width and packing, with its wire lengths, into one slot of the
   engine's :class:`StagingArena`, as :func:`layout` placed them.
 
-The batch tensors handed to the launches are views of the slot. Without
-the native library, both steps run in numpy (every window a candidate,
-one lane).
+The batch tensors handed to the launches are views of the slot. The
+engine is not built without the native library, so neither step has
+another form.
 """
 
 import threading
@@ -56,30 +56,6 @@ def wire_bytes(wide: bool, width: Optional[int]) -> int:
     return 1 if width is not None and width < 256 else 2
 
 
-def select(buf, starts, lens, prefilter, clean_lut, clean_reverse,
-           width: int, host_tail_ok: bool, sort_desc: bool):
-    """The candidates of one dispatch over the windows (``starts`` int64,
-    ``lens`` int32), split into lanes and ordered:
-    :func:`native.stage_select`, or without the native library (no
-    prefilter tables and no 2-bit lane there) every window in one lane.
-    Returns (positions into the windows, their starts, their lengths,
-    (clean rows, other rows, other rows are a host tail, longest
-    length))."""
-    if native.AVAILABLE:
-        return native.stage_select(buf, starts, lens, prefilter, clean_lut,
-                                   clean_reverse, width, host_tail_ok,
-                                   sort_desc)
-    if prefilter is not None or clean_lut is not None:
-        raise RuntimeError("the prefilter and the 2-bit lane need the "
-                           "native library")
-    n = len(starts)
-    sel = np.arange(n, dtype=np.int64)
-    if sort_desc and n > 1:
-        sel = np.argsort(-lens.astype(np.int64), kind="stable")
-    longest = int(lens.max()) if n else 0
-    return sel, starts[sel], lens[sel], (0, n, 0, longest)
-
-
 def layout(batches, wide: bool, exact: bool):
     """Where each batch of ``batches`` ((first row, rows taken, size,
     row width, pack2) each) lies in a slot: the (n, 8) int64 rows that
@@ -100,23 +76,11 @@ def layout(batches, wide: bool, exact: bool):
 def encode(buf, c_starts, c_lens, rows: np.ndarray, lut, reverse: bool,
            arena: np.ndarray) -> list:
     """Write every batch of the layout ``rows`` into ``arena`` (a slot's
-    uint8 array): :func:`native.stage_encode`, or its numpy form. Returns
-    the (enc, lengths) host tensors of each batch, views of the slot."""
+    uint8 array): :func:`native.stage_encode`. Returns the (enc,
+    lengths) host tensors of each batch, views of the slot."""
     if len(rows) and rows[-1, 7] + rows[-1, 2] * rows[-1, 5] > len(arena):
         raise ValueError("the layout does not fit the slot")
-    if native.AVAILABLE:
-        native.stage_encode(buf, c_starts, c_lens, rows, lut, reverse, arena)
-    else:
-        for row0, take, size, width, pack, nb, enc_off, len_off in rows:
-            pack2 = None if pack == 0 else pack == 2
-            rb = row_bytes(width, pack2)
-            out = arena[enc_off : enc_off + size * rb].reshape(size, rb)
-            out[:] = encode_rows(buf, c_starts, c_lens,
-                                 np.arange(row0, row0 + take), size, width,
-                                 lut, reverse, pack2)
-            wire = arena[len_off : len_off + size * nb].view(_WIRE_DTYPES[nb])
-            wire[:take] = c_lens[row0 : row0 + take]
-            wire[take:] = 0
+    native.stage_encode(buf, c_starts, c_lens, rows, lut, reverse, arena)
     views = []
     for row0, take, size, width, pack, nb, enc_off, len_off in rows.tolist():
         rb = row_bytes(width, None if pack == 0 else pack == 2)
@@ -134,26 +98,12 @@ def encode_rows(buf, starts, lens, sel, rows: int, width: int, lut,
     """(rows, row_bytes) uint8 of the windows ``sel`` of (starts, lens)
     encoded through ``lut`` at ``width`` bases (back to front where
     ``reverse``; pack2 as :func:`row_bytes`), the rows past len(sel)
-    zero: one batch, for the host comparers, the tools and the numpy
-    form of :func:`encode`."""
+    zero (:func:`native.pad_encode`): one batch, for the host comparers
+    and the tools."""
     out = np.zeros((rows, row_bytes(width, pack2)), np.uint8)
-    if native.AVAILABLE:
-        native.pad_encode(buf, starts, lens, np.asarray(sel, np.int64),
-                          width, lut, pack4=pack2 is False,
-                          pack2=bool(pack2), out=out, reverse=reverse)
-        return out
-    e = np.zeros((len(sel), width), np.uint8)  # padding 0, as in C++
-    for pos, i in enumerate(sel):
-        win = buf[starts[i] : starts[i] + lens[i]]
-        if reverse:
-            win = win[::-1]
-        e[pos, : min(len(win), width)] = lut[win[:width]]
-    if pack2:
-        e = (e[:, 0::4] | (e[:, 1::4] << 2)
-             | (e[:, 2::4] << 4) | (e[:, 3::4] << 6))
-    elif pack2 is False:
-        e = e[:, 0::2] | (e[:, 1::2] << 4)
-    out[: len(sel)] = e
+    native.pad_encode(buf, starts, lens, np.asarray(sel, np.int64), width,
+                      lut, pack4=pack2 is False, pack2=bool(pack2), out=out,
+                      reverse=reverse)
     return out
 
 

@@ -30,7 +30,8 @@ TOOLS = os.path.join(REPO, "tools")
 CPU_ENV = {"BENCH_READS": "4096", "BENCH_BASELINE_READS": "512",
            "OMP_NUM_THREADS": "1"}
 # bench_torch.py's JSON keys: bench.py's, with kernel_parity for
-# pallas_parity and link_* for tunnel_*, then the port's own
+# pallas_parity and link_* for tunnel_* and without pack2 (a switch the
+# port does not have), then the port's own
 BENCH_KEYS = {
     "metric", "value", "unit", "vs_baseline", "vs_8core_equiv",
     "kernel_parity", "backend", "device", "power_limit_w", "n_reads",
@@ -39,7 +40,7 @@ BENCH_KEYS = {
     "link_post", "device_kernel", "x_bound", "idle_share", "profiler",
     "pipelined_pass", "assemble_micro_ns_per_read", "cli_reads_per_sec",
     "cli_best_reads_per_sec", "chunks_in_flight_max", "pooled_drive",
-    "pack2", "bytes_per_read_h2d", "bytes_per_read_d2h",
+    "bytes_per_read_h2d", "bytes_per_read_d2h",
     "candidates_per_read", "dp_rows_per_read", "stage_ns_per_read",
     "sequential_reads_per_sec", "roofline",
 }

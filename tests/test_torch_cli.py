@@ -388,10 +388,33 @@ def test_quality_trimming_of_fasta_is_refused(port_env, tmp_path, caplog):
     assert "quality trimming or capping of FASTA input" in caplog.text
 
 
+def test_engine_needs_the_native_library(port_env, tmp_path, caplog):
+    """Without the native host library the engine does not run: a run
+    takes the host path through one fallback, which names the library
+    (an error under require), and the engine refuses to be built."""
+    from cutadapt_tpu_torch import native
+
+    port_env.setattr(native, "AVAILABLE", False)
+    fallbacks, runs = accel.FALLBACK_COUNT, plain_runs()
+    _, out = run_case("twoadapters", tmp_path)
+    assert read(out) == read(golden_path("twoadapters.fasta"))
+    assert accel.FALLBACK_COUNT == fallbacks + 1
+    assert "native host library" in accel.LAST_FALLBACK
+    assert plain_runs() == runs
+    with pytest.raises(RuntimeError, match="native host library"):
+        batch_pipeline.BatchPipelineEngine([], device="cpu")
+    port_env.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
+    with pytest.raises(SystemExit) as e:
+        run_case("twoadapters", tmp_path)
+    assert e.value.code == 1
+    assert "native host library" in caplog.text
+
+
 def test_jax_package_environment_leaves_the_port_alone(port_env, tmp_path):
     """The JAX package's variables do not steer the port: its engine
-    stays on under CUTADAPT_TPU_BATCH=0 and its lane switches read only
-    their CUTADAPT_TPU_TORCH_ names."""
+    stays on under CUTADAPT_TPU_BATCH=0, its exact-wire switch reads only
+    its CUTADAPT_TPU_TORCH_ name, and its scalar tail is a constant that
+    the JAX package's CUTADAPT_TPU_SCALAR_TAIL does not reach."""
     port_env.setenv("CUTADAPT_TPU_BATCH", "0")
     port_env.setenv("CUTADAPT_TPU_PACK2", "0")
     port_env.setenv("CUTADAPT_TPU_EXACT_WIRE", "1")
@@ -401,13 +424,8 @@ def test_jax_package_environment_leaves_the_port_alone(port_env, tmp_path):
     assert read(out) == read(golden_path("twoadapters.fasta"))
     assert plain_runs() > runs
     assert accel.FALLBACK_COUNT == fallbacks
-    assert batch_pipeline._pack2_on()
     assert not batch_pipeline._exact_wire_on(batch_pipeline.torch.device("cpu"))
-    assert batch_pipeline._scalar_tail_max() == 512
+    assert batch_pipeline._SCALAR_TAIL == 512
 
-    port_env.setenv("CUTADAPT_TPU_TORCH_PACK2", "0")
     port_env.setenv("CUTADAPT_TPU_TORCH_EXACT_WIRE", "1")
-    port_env.setenv("CUTADAPT_TPU_TORCH_SCALAR_TAIL", "7")
-    assert not batch_pipeline._pack2_on()
     assert batch_pipeline._exact_wire_on(batch_pipeline.torch.device("cpu"))
-    assert batch_pipeline._scalar_tail_max() == 7

@@ -1025,8 +1025,8 @@ def test_shared_upload_on_card(card, monkeypatch):
     """The TruSeq, Nextera and small-RNA 3' adapters form one group on
     the card: each dispatch batch is uploaded once and launched once per
     member on the uploaded tensors; the output equals the per-task
-    dispatch's on the card and the plain version's (the engine on the
-    CPU)."""
+    dispatch's (each member through ``_dispatch_windows`` on its own) on
+    the card and the plain version's (the engine on the CPU)."""
     adapters = (fx.ADAPTER, fx.NEXTERA, "TGGAATTCTCGGGTGCCAAGG")
     events = []
     real_upload, real_locate = tbp.upload_batch, tbp.locate_packed
@@ -1040,17 +1040,23 @@ def test_shared_upload_on_card(card, monkeypatch):
         events.append(("launch", enc.data_ptr(), tables.spec.reference))
         return real_locate(enc, lengths, tables, pack2, wide=wide)
 
+    def per_task(engine, stage, chunk, subset, win_start, win_stop, width):
+        return [engine._dispatch_task(t, chunk, subset, win_start, win_stop,
+                                      width) for t in stage.tasks]
+
     monkeypatch.setattr(tbp, "upload_batch", upload)
     monkeypatch.setattr(tbp, "locate_packed", locate)
     chunks, _ = fx.split_records(
         fx.add_ns(fx.make_reads(6000, 12, list(adapters)), 0.05), 2000)
     outs = {}
     for device, shared in (("cuda", "1"), ("cuda", "0"), ("cpu", "1")):
-        monkeypatch.setenv("CUTADAPT_TPU_TORCH_SHARED_UPLOAD", shared)
         stage, _ = fx.cutter_stage(fx.PORT_MODULES,
                                    [("back", ad) for ad in adapters])
         engine = tbp.BatchPipelineEngine(
             [stage], device=device, min_dp_batch=256, max_dp_batch=1024)
+        if shared == "0":
+            monkeypatch.setattr(engine, "_dispatch_stage",
+                                per_task.__get__(engine))
         align_cuda.reset_launch_counters()
         events.clear()
         outs[device, shared] = [

@@ -1,19 +1,19 @@
 """
-The engine's two dispatch modes in the port, held to the JAX package's:
-the shared upload of a stage's task groups
-(``CUTADAPT_TPU_TORCH_SHARED_UPLOAD``, on by default; the reference's
-``CUTADAPT_TPU_SHARED_UPLOAD``) and the device-side prefilter
-(``CUTADAPT_TPU_TORCH_DEVICE_PREFILTER=1``; ``CUTADAPT_TPU_DEVICE_PREFILTER``).
+The port's one dispatch path, held to the JAX package's default one: the
+shared upload of a stage's task groups (one upload per group, one launch
+per member) beside the per-task dispatch of singletons, comparers,
+indexed and linked tasks, with the host k-mer prefilter.
 
 Each option set runs through the port's CLI on its engine under require
 on the CPU (the aligner's plain version) and through the JAX CLI on its
-engine (``CUTADAPT_TPU_BATCH=1``, one device), with the switch on and
-off in both, on the same seeded reads; both engines dispatch batches of
-64 to 256 rows, so lanes take several batches and scalar tails. Every
-output file and the ``--json`` report must be byte-identical across the
-four runs, and the port's transfer counters (``xfer_counters``: H2D and
-D2H bytes, candidates, DP rows) equal to the JAX engine's in each mode.
-Tolerance: exact.
+engine (``CUTADAPT_TPU_BATCH=1``, one device, its default switches) on
+the same seeded reads; both engines dispatch batches of 64 to 256 rows,
+so lanes take several batches and scalar tails. Every output file and
+the ``--json`` report must be byte-identical across the two runs, and
+the port's transfer counters (``xfer_counters``: H2D and D2H bytes,
+candidates, DP rows) equal to the JAX engine's. Under a mesh of two
+shards every task dispatches on its own, as the JAX engine does with
+``CUTADAPT_TPU_SHARED_UPLOAD=0``. Tolerance: exact.
 """
 
 import functools
@@ -57,9 +57,9 @@ def engines(monkeypatch):
     JAX package on one device), each engine dispatching 64-256 rows."""
     for name in ("CUTADAPT_TPU_TORCH_CHUNK_BYTES", "CUTADAPT_TPU_CHUNK_BYTES",
                  "CUTADAPT_TPU_WORKERS", "CUTADAPT_TPU_TORCH_DEVICE_STATS",
-                 "CUTADAPT_TPU_DEVICE_STATS", "CUTADAPT_TPU_TORCH_PACK2",
-                 "CUTADAPT_TPU_PACK2", "CUTADAPT_TPU_TORCH_EXACT_WIRE",
-                 "CUTADAPT_TPU_EXACT_WIRE"):
+                 "CUTADAPT_TPU_DEVICE_STATS", "CUTADAPT_TPU_PACK2",
+                 "CUTADAPT_TPU_SHARED_UPLOAD", "CUTADAPT_TPU_DEVICE_PREFILTER",
+                 "CUTADAPT_TPU_TORCH_EXACT_WIRE", "CUTADAPT_TPU_EXACT_WIRE"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("CUTADAPT_TPU_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("CUTADAPT_TPU_TORCH_BATCH", "require")
@@ -90,8 +90,8 @@ class GroupSpy:
 def _run(monkeypatch, package, tmp_path, tag, args, inputs, outputs,
          switches):
     """One CLI run of ``package`` ("port" or "jax") with ``switches``
-    ({"SHARED_UPLOAD": "1", ...}) set under its prefix: its files, its
-    report and its transfer counters."""
+    ({"DEVICES": "2", ...}) set under its prefix: its files, its report
+    and its transfer counters."""
     prefix = "CUTADAPT_TPU_TORCH_" if package == "port" else "CUTADAPT_TPU_"
     for name, value in switches.items():
         monkeypatch.setenv(prefix + name, value)
@@ -160,6 +160,25 @@ def _revcomp_some(data: bytes) -> bytes:
 def _case_inputs(case, tmp_path):
     """(arguments, inputs, outputs) of an option set."""
     out = [("-o", "out.1.fastq")]
+    if case == "flagship":
+        # tests/test_accel.py:test_fastpath_device_prefilter_parity
+        data = fx.make_reads(1000, 7, [fx.ADAPTER])
+        return (["-a", "a1=" + fx.ADAPTER, "-q", "10"],
+                [_write(tmp_path, "in.fastq", data)], out)
+    if case == "linked":
+        data = fx.make_amplicons(300, rc_share=0.0)
+        return (["-a", fx.LINKED_PRIMERS, "--discard-untrimmed"],
+                [_write(tmp_path, "in.fastq", data)], out)
+    if case == "pair adapters":
+        # --pair-adapters: each pair's adapters on their side's engine
+        r1 = fx.make_reads(600, 41, [fx.ADAPTER, fx.NEXTERA])
+        r2 = fx.make_reads(600, 42, [ILLUMINA[2], fx.NEXTERA])
+        return (["--pair-adapters", "-a", "p1=" + fx.ADAPTER,
+                 "-a", "q1=" + fx.NEXTERA, "-A", "p2=" + ILLUMINA[2],
+                 "-A", "q2=" + fx.NEXTERA],
+                [_write(tmp_path, "in.1.fastq", r1),
+                 _write(tmp_path, "in.2.fastq", r2)],
+                out + [("-p", "out.2.fastq")])
     if case == "paired":
         r1 = fx.make_reads(900, 31, [fx.ADAPTER, fx.NEXTERA])
         r2 = fx.make_reads(900, 32, [ILLUMINA[2], "AGATCGGAAGAGCGTCGTGTAG"])
@@ -205,134 +224,56 @@ def _case_inputs(case, tmp_path):
     return args, [_write(tmp_path, "in.fastq", data)], out
 
 
-# option set -> (reads, {switch: value} of both packages, of the port
-# alone); the expectation differs for the last two
+# option set -> (reads, {switch: value} of the port, of the JAX package,
+# whether a stage has a group of tasks that share an upload)
 CASES = {
-    "three illumina": ("three illumina", {}, {}),
-    "group and single": ("group and single", {}, {}),
-    "back and anywhere": ("back and anywhere", {}, {}),
-    "revcomp": ("revcomp", {}, {}),
-    "paired": ("paired", {}, {}),
-    "times 2": ("times 2", {}, {}),
-    "byte lane": ("byte lane", {}, {}),
-    "wildcard file": ("wildcard file", {}, {}),
-    # the 4-bit groups of a run without the 2-bit lane: candidates and
-    # DP rows as the reference's byte group, half its H2D bytes
-    "pack2 off": ("three illumina", {"PACK2": "0"}, {}),
-    # a mesh of two CPU shards: every task dispatches on its own, so the
-    # counters do not depend on the switch
-    "two shards": ("three illumina", {}, {"DEVICES": "2"}),
+    "three illumina": ("three illumina", {}, {}, True),
+    "group and single": ("group and single", {}, {}, True),
+    "back and anywhere": ("back and anywhere", {}, {}, True),
+    "revcomp": ("revcomp", {}, {}, True),
+    "paired": ("paired", {}, {}, True),
+    "times 2": ("times 2", {}, {}, True),
+    "byte lane": ("byte lane", {}, {}, True),
+    "wildcard file": ("wildcard file", {}, {}, True),
+    # one adapter, a host stage before it
+    "flagship": ("flagship", {}, {}, False),
+    # a linked adapter: its 5' phase from submit, its 3' phase on the
+    # engine's worker
+    "linked": ("linked", {}, {}, False),
+    # each pair's adapters matched from emit, task by task
+    "pair adapters": ("pair adapters", {}, {}, False),
+    # a mesh of two CPU shards: every task dispatches on its own, as the
+    # JAX engine's per-task dispatch
+    "two shards": ("three illumina", {"DEVICES": "2"},
+                   {"SHARED_UPLOAD": "0"}, False),
 }
 
 
 @pytest.mark.timeout(150)
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_shared_upload_matches_jax_engine(engines, tmp_path, case):
-    """Files and report of the port equal the JAX CLI's with the shared
-    upload on and off, and its transfer counters the JAX engine's in each
-    mode; on, the groups dispatch together, off, none does."""
-    reads, both, port_only = CASES[case]
+def test_dispatch_matches_jax_engine(engines, tmp_path, case):
+    """Files and report of the port equal the JAX CLI's, and its transfer
+    counters the JAX engine's; the groups of a stage dispatch together,
+    and none does under a mesh."""
+    reads, port_switches, jax_switches, grouped = CASES[case]
     args, inputs, outputs = _case_inputs(reads, tmp_path)
     spy = GroupSpy(engines)
-    got, groups = {}, {}
-    for value in ("1", "0"):
-        before = spy.calls
-        for package in ("port", "jax"):
-            switches = {"SHARED_UPLOAD": value, **both}
-            if package == "port":
-                switches.update(port_only)
-            got[package, value] = _run(engines, package, tmp_path,
-                                       f"shared{value}", args, inputs,
-                                       outputs, switches)
-        groups[value] = spy.calls - before
+    got = {package: _run(engines, package, tmp_path, "default", args, inputs,
+                         outputs, switches)
+           for package, switches in (("port", port_switches),
+                                     ("jax", jax_switches))}
     _same_results(got)
-    assert groups["0"] == 0
-    port = {v: got["port", v][2] for v in ("1", "0")}
-    jax = {v: got["jax", v][2] for v in ("1", "0")}
+    assert (spy.calls > 0) == grouped
+    port, jax = got["port"][2], got["jax"][2]
     if case == "two shards":
+        # the mesh pads each dispatch to its shards: the rows differ
         assert tbp.get_shard_mesh().size == 2
-        assert groups["1"] == 0 and port["1"] == port["0"]
-        assert port["0"]["candidates"] == jax["0"]["candidates"]
-        return
-    assert groups["1"] > 0
-    assert port["0"] == jax["0"]
-    if case == "pack2 off":
-        for key in ("candidates", "dp_rows", "d2h_bytes"):
-            assert port["1"][key] == jax["1"][key], key
-        # half a byte per base against the reference's byte per base
-        assert port["1"]["h2d_bytes"] < jax["1"]["h2d_bytes"]
+        assert port["candidates"] == jax["candidates"]
     else:
-        assert port["1"] == jax["1"]
+        assert port == jax
 
 
-def _prefilter_inputs(case, tmp_path):
-    """(arguments, inputs, outputs) of a device-prefilter case."""
-    out = [("-o", "out.1.fastq")]
-    if case == "flagship":
-        # tests/test_accel.py:test_fastpath_device_prefilter_parity
-        data = fx.make_reads(1000, 7, [fx.ADAPTER])
-        return (["-a", "a1=" + fx.ADAPTER, "-q", "10"],
-                [_write(tmp_path, "in.fastq", data)], out)
-    if case == "three illumina":
-        data = fx.make_reads(1000, 8, list(ILLUMINA))
-        return THREE_ILLUMINA, [_write(tmp_path, "in.fastq", data)], out
-    if case == "linked":
-        data = fx.make_amplicons(300, rc_share=0.0)
-        return (["-a", fx.LINKED_PRIMERS, "--discard-untrimmed"],
-                [_write(tmp_path, "in.fastq", data)], out)
-    # --pair-adapters: each pair's adapters on their side's engine
-    r1 = fx.make_reads(600, 41, [fx.ADAPTER, fx.NEXTERA])
-    r2 = fx.make_reads(600, 42, [ILLUMINA[2], fx.NEXTERA])
-    return (["--pair-adapters", "-a", "p1=" + fx.ADAPTER,
-             "-a", "q1=" + fx.NEXTERA, "-A", "p2=" + ILLUMINA[2],
-             "-A", "q2=" + fx.NEXTERA],
-            [_write(tmp_path, "in.1.fastq", r1),
-             _write(tmp_path, "in.2.fastq", r2)],
-            out + [("-p", "out.2.fastq")])
-
-
-@pytest.mark.timeout(150)
-@pytest.mark.parametrize("case", ("flagship", "three illumina", "linked",
-                                  "pair adapters"))
-def test_device_prefilter_matches_jax_engine(engines, tmp_path, case,
-                                             monkeypatch):
-    """With the device-side prefilter every window is a candidate: the
-    files and report equal the runs without it and the JAX CLI's with
-    CUTADAPT_TPU_DEVICE_PREFILTER=1, and the port's transfer counters the
-    JAX engine's with the switch on and off; the host's k-mer scan runs
-    only with it off."""
-    import cutadapt_tpu_torch.native as tnative
-
-    args, inputs, outputs = _prefilter_inputs(case, tmp_path)
-    scans = []
-    real = tnative.stage_select
-
-    def scan(buf, starts, lens, prefilter, *a, **kw):
-        if prefilter is not None:
-            scans.append(1)
-        return real(buf, starts, lens, prefilter, *a, **kw)
-
-    monkeypatch.setattr(tnative, "stage_select", scan)
-    got, port_scans = {}, {}
-    for value in ("1", "0"):
-        before = len(scans)
-        for package in ("port", "jax"):
-            got[package, value] = _run(engines, package, tmp_path,
-                                       f"prefilter{value}", args, inputs,
-                                       outputs, {"DEVICE_PREFILTER": value})
-        port_scans[value] = len(scans) - before
-    _same_results(got)
-    for value in ("1", "0"):
-        assert got["port", value][2] == got["jax", value][2], value
-    assert port_scans["1"] == 0 and port_scans["0"] > 0
-    on, off = got["port", "1"][2], got["port", "0"][2]
-    assert on["candidates"] > off["candidates"]
-    if case in ("flagship", "three illumina"):
-        # one round over one group: every read shipped once
-        assert on["candidates"] == 1000 and off["candidates"] < 1000
-
-
-def test_group_members_reject_each_others_candidates(monkeypatch):
+def test_group_members_reject_each_others_candidates():
     """In a group of the three Illumina adapters each member's kernel
     runs over the union of the members' prefilter candidates: the reads
     only another member's prefilter admits come back found=False, and on
@@ -340,8 +281,6 @@ def test_group_members_reject_each_others_candidates(monkeypatch):
     dispatch."""
     from cutadapt_tpu_torch import native
 
-    monkeypatch.delenv("CUTADAPT_TPU_TORCH_PACK2", raising=False)
-    monkeypatch.delenv("CUTADAPT_TPU_TORCH_DEVICE_PREFILTER", raising=False)
     stage, tasks = fx.cutter_stage(
         fx.PORT_MODULES, [("back", ad) for ad in ILLUMINA])
     engine = tbp.BatchPipelineEngine([stage], device="cpu", **SIZES)
@@ -352,16 +291,17 @@ def test_group_members_reject_each_others_candidates(monkeypatch):
     we = chunk.seq_len.astype(np.int32)
     width = engine._bucket_length(int(we.max()))
     subset = np.arange(n)
-    results = {}
-    for value in ("1", "0"):
-        monkeypatch.setenv("CUTADAPT_TPU_TORCH_SHARED_UPLOAD", value)
-        disp = engine._dispatch_stage(stage, chunk, subset, ws, we, width)
-        results[value] = []
-        for task, (kind, sel, futures) in zip(tasks, disp):
-            assert kind == "single"
-            found, qs, qe, er, sc = engine._fetch_task(len(sel), futures)[:5]
-            results[value].append((sel, found, qs, qe, er, sc))
     starts = chunk.seq_start.astype(np.int64)
+    # "1": the group's dispatch; "0": each member's own
+    disp = engine._dispatch_stage(stage, chunk, subset, ws, we, width)
+    assert all(kind == "single" for kind, _, _ in disp)
+    per_task = [engine._dispatch_windows(task, chunk, starts, we, width)
+                for task in tasks]
+    results = {
+        value: [(sel,) + tuple(engine._fetch_task(len(sel), futures)[:5])
+                for sel, futures in dispatches]
+        for value, dispatches in (("1", [d[1:] for d in disp]),
+                                  ("0", per_task))}
     others = 0
     for i, task in enumerate(tasks):
         own = native.kmer_prefilter(chunk.buf, starts, we, task.pf_tables,

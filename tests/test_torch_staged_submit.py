@@ -48,9 +48,8 @@ def _window(chunk, start, length, reverse) -> bytes:
 
 def oracle_candidates(tasks, chunk, starts, lens) -> np.ndarray:
     """The windows that any task's KmerFinder admits (every window
-    without tables or under the device prefilter)."""
-    if (bp._device_prefilter_on()
-            or any(t.pf_tables is None for t in tasks)):
+    without tables)."""
+    if any(t.pf_tables is None for t in tasks):
         return np.arange(len(starts))
     keep = [i for i in range(len(starts))
             if any(t.adapter.kmer_finder.kmers_present(
@@ -69,7 +68,7 @@ def oracle_lanes(engine, task, chunk, c_starts, c_lens, width,
     order = np.arange(n)
     lanes = [(n, None if task.byte else False)]
     host_tail = 0
-    if not task.byte and bp._pack2_on():
+    if not task.byte:
         clean = np.array([
             (task.lut[np.frombuffer(_window(chunk, s, length, task.reverse)
                                     [:width], np.uint8)] < 4).all()
@@ -193,12 +192,11 @@ class OracleSubmit:
         self.engine = engine
 
     def dispatch_windows(self, task, chunk, starts, lens, width):
-        tail_max = bp._scalar_tail_max()
         return self._dispatch([task], chunk, starts, lens, width, True,
-                              tail_max, per_task=True)
+                              bp._SCALAR_TAIL, per_task=True)
 
     def dispatch_group(self, key, tasks, chunk, starts, lens, width):
-        tail_max = bp._scalar_tail_max() if key[0] == "cls" else 0
+        tail_max = bp._SCALAR_TAIL if key[0] == "cls" else 0
         return self._dispatch(tasks, chunk, starts, lens, width, False,
                               tail_max, per_task=False)
 
@@ -312,10 +310,10 @@ def case_linked_front_phase():
         fx.make_amplicons(700))
 
 
-def case_device_prefilter():
-    stage, tasks = _back(fx.ADAPTER)
-    return stage, tasks, parse_fastq_chunk(
-        fx.add_ns(fx.make_dataset(700, seed=6), 0.05))
+def case_linked_back_phase():
+    stage, tasks = _back(fx.LINKED_PRIMERS)
+    return stage, [tasks[0].back_task], parse_fastq_chunk(
+        fx.add_ns(fx.make_amplicons(700, seed=6), 0.05))
 
 
 def case_byte_lane():
@@ -364,19 +362,15 @@ def _one_torch_thread():
 
 @pytest.fixture
 def env(monkeypatch):
-    for name in ("PACK2", "SHARED_UPLOAD", "DEVICE_PREFILTER",
-                 "EXACT_WIRE", "SCALAR_TAIL"):
-        monkeypatch.delenv("CUTADAPT_TPU_TORCH_" + name, raising=False)
+    monkeypatch.delenv("CUTADAPT_TPU_TORCH_EXACT_WIRE", raising=False)
     # remainders past 16 rows take a padded batch: both rules run
-    monkeypatch.setenv("CUTADAPT_TPU_TORCH_SCALAR_TAIL", "16")
+    monkeypatch.setattr(bp, "_SCALAR_TAIL", 16)
     yield monkeypatch
     bp.set_shard_mesh(None)
 
 
 def _setup(env, case, exact):
     env.setenv("CUTADAPT_TPU_TORCH_EXACT_WIRE", exact)
-    if case == "device_prefilter":
-        env.setenv("CUTADAPT_TPU_TORCH_DEVICE_PREFILTER", "1")
     if case == "mesh_4_shards":
         bp.set_shard_mesh(Mesh(["cpu"] * 4))
     return CASES[case]()
@@ -394,9 +388,9 @@ def test_stage_matches_oracle(env, case, exact):
     if group:
         key = bp._upload_key(tasks[0])
         assert all(bp._upload_key(t) == key for t in tasks)
-        tail_max = bp._scalar_tail_max() if key[0] == "cls" else 0
+        tail_max = bp._SCALAR_TAIL if key[0] == "cls" else 0
     else:
-        tail_max = bp._scalar_tail_max()
+        tail_max = bp._SCALAR_TAIL
     want = oracle_stage(engine, tasks, chunk, starts, lens, width,
                         not group, tail_max)
     got = engine._stage(tasks, chunk, starts, lens, width,
@@ -437,8 +431,10 @@ def test_stage_matches_oracle(env, case, exact):
         assert got.wide
     if case == "longer_than_width":
         assert int(lens.max()) > width
-    if case == "device_prefilter":
-        assert len(got.sel) == len(lens)
+    if case == "linked_back_phase":
+        # every amplicon carries the 3' primer, whose IUPAC bases still
+        # leave the reads' clean windows on the 2-bit lane
+        assert len(got.sel) == len(lens) and lanes[0] is True
     if case == "mesh_4_shards":
         assert all(len(b[4]) % 4 == 0 for b in got.batches)
 

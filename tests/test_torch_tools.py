@@ -82,9 +82,11 @@ def test_kernel_bench_takes_the_engines_lane_and_width():
 
 
 def test_fuzz_parity_draws_the_dispatch_modes(monkeypatch):
-    """A seed that draws the JAX tool's DEVICE_PREFILTER=1 runs the
-    port's device-side prefilter on the engine run (and never on the
-    host run), with the SHARED_UPLOAD of the tool's second generator."""
+    """The tool draws in the JAX tool's order, so a seed gives both tools
+    the same reads and arguments, and drops the draws of the JAX tool's
+    PACK2 and DEVICE_PREFILTER: a seed on which the JAX tool turns both
+    off the default runs the port's engine with none of the switches the
+    port no longer has."""
     import importlib.util
 
     import cutadapt_tpu_torch.batch_pipeline as bp
@@ -94,36 +96,43 @@ def test_fuzz_parity_draws_the_dispatch_modes(monkeypatch):
                                           "fuzz_parity_torch.py"))
     fuzz = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fuzz)
-    seed = next(s for s in range(2000, 2100)
-                if fuzz.draw(s)[4]["CUTADAPT_TPU_TORCH_DEVICE_PREFILTER"]
-                == "1")
-    knobs = fuzz.draw(seed)[4]
-    # the JAX tool's draws, in its order (tools/fuzz_parity.py:158-167),
-    # leave its generator where this tool's is left
-    rng = random.Random(seed)
-    if rng.random() < 0.45:
+    removed = tuple("CUTADAPT_TPU_TORCH_" + name for name in (
+        "PACK2", "DEVICE_PREFILTER", "SHARED_UPLOAD", "SCALAR_TAIL"))
+
+    def jax_draws(seed):
+        """The JAX tool's draws (tools/fuzz_parity.py:158-171): its
+        generator after them, its PACK2 and its DEVICE_PREFILTER."""
+        rng = random.Random(seed)
+        if rng.random() < 0.45:
+            rng.random()
         rng.random()
-    rng.random()
-    for choices in (["0", "1"], ["0", "1"], ["1", "2", "3"], ["0", "1"],
-                    ["0", "0", "1"], ["", "3000", "12000"]):
-        rng.choice(choices)
-    assert fuzz.draw(seed)[0].getstate() == rng.getstate()
+        got = [rng.choice(choices) for choices in (
+            ["0", "1"], ["0", "1"], ["1", "2", "3"], ["0", "1"],
+            ["0", "0", "1"], ["", "3000", "12000"])]
+        return rng, got[0], got[4]
+
+    seed = next(s for s in range(2000, 2100)
+                if jax_draws(s)[1:] == ("0", "1"))
+    for s in (seed, seed + 1):
+        assert fuzz.draw(s)[0].getstate() == jax_draws(s)[0].getstate()
+    knobs = fuzz.draw(seed)[4]
+    assert sorted(knobs) == sorted(fuzz.KNOBS)
+    assert not set(knobs) & set(removed)
     seen = []
-    real = bp._device_prefilter_on
+    real = bp.BatchPipelineEngine._dispatch_stage
 
-    def spy():
+    def spy(engine, *args, **kwargs):
         seen.append((os.environ.get("CUTADAPT_TPU_TORCH_BATCH"),
-                     os.environ.get("CUTADAPT_TPU_TORCH_SHARED_UPLOAD")))
-        return real()
+                     tuple(k for k in removed if k in os.environ)))
+        return real(engine, *args, **kwargs)
 
-    monkeypatch.setattr(bp, "_device_prefilter_on", spy)
+    monkeypatch.setattr(bp.BatchPipelineEngine, "_dispatch_stage", spy)
     monkeypatch.setenv("CUTADAPT_TPU_TORCH_DEVICE", "cpu")
-    for key in fuzz.KNOBS + ("CUTADAPT_TPU_TORCH_BATCH",):
+    for key in fuzz.KNOBS + removed + ("CUTADAPT_TPU_TORCH_BATCH",):
         monkeypatch.delenv(key, raising=False)
     with fx.one_torch_thread():
         assert fuzz.main_fuzz(["1", str(seed), "--device", "cpu"]) == 0
-    assert seen and set(seen) == {
-        ("1", knobs["CUTADAPT_TPU_TORCH_SHARED_UPLOAD"])}
+    assert seen and set(seen) == {("1", ())}
 
 
 def _trace_cell():

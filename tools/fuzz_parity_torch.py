@@ -10,19 +10,16 @@ with the engine on (CUTADAPT_TPU_TORCH_BATCH=1) and off (0), and
 requires identical outputs (every file written under the run's output
 directory, demultiplexed and side files included), JSON reports and
 failure modes. The engine run also draws the port's own knobs, all of
-which must be invisible in the results: CUTADAPT_TPU_TORCH_PACK2 (the
-2-bit or 4-bit lane), CUTADAPT_TPU_TORCH_EXACT_WIRE (batch-max row
-widths), CUTADAPT_TPU_TORCH_DEVICE_STATS (the statistics reducer),
-CUTADAPT_TPU_TORCH_DEVICE_PREFILTER (every window to the DP, no host
-k-mer scan), CUTADAPT_TPU_TORCH_CHUNK_BYTES (multi-chunk runs),
+which must be invisible in the results: CUTADAPT_TPU_TORCH_EXACT_WIRE
+(batch-max row widths), CUTADAPT_TPU_TORCH_DEVICE_STATS (the statistics
+reducer), CUTADAPT_TPU_TORCH_CHUNK_BYTES (multi-chunk runs) and
 CUTADAPT_TPU_TORCH_DEVICES (a mesh of N shards; on the CPU, N shards of
-the CPU; on CUDA the first N cards) and CUTADAPT_TPU_TORCH_SHARED_UPLOAD
-(one upload per task group of a stage, or one per task). The JAX tool's
-WORKERS has no counterpart in the port (its pooled drive was removed):
-that draw picks the shard count. SHARED_UPLOAD, which the JAX tool does
-not draw, comes from a second generator seeded from the iteration's
-seed, so a seed gives both tools the same inputs and arguments. --shard
-is never drawn: sharding has tests of its own.
+the CPU; on CUDA the first N cards). The JAX tool's WORKERS has no
+counterpart in the port (its pooled drive was removed): that draw picks
+the shard count. Its 2-bit-lane and device-prefilter draws are made
+and dropped (the port has one lane rule and the host prefilter only), so
+a seed gives both tools the same inputs and arguments. --shard is never
+drawn: sharding has tests of its own.
 
 On CUDA (the default) an engine run that reached the plain aligner
 version, which only CPU tensors take, counts as a mismatch.
@@ -53,10 +50,8 @@ A3 = "AGATCGGAAGAGCACACGTC"
 A5 = "CTGTCTCTTATACACATCT"
 AW = "ANGATNACGGA"
 # the engine run's knobs, unset for the host run
-KNOBS = ("CUTADAPT_TPU_TORCH_PACK2", "CUTADAPT_TPU_TORCH_DEVICE_STATS",
-         "CUTADAPT_TPU_TORCH_EXACT_WIRE", "CUTADAPT_TPU_TORCH_CHUNK_BYTES",
-         "CUTADAPT_TPU_TORCH_DEVICES", "CUTADAPT_TPU_TORCH_DEVICE_PREFILTER",
-         "CUTADAPT_TPU_TORCH_SHARED_UPLOAD")
+KNOBS = ("CUTADAPT_TPU_TORCH_DEVICE_STATS", "CUTADAPT_TPU_TORCH_EXACT_WIRE",
+         "CUTADAPT_TPU_TORCH_CHUNK_BYTES", "CUTADAPT_TPU_TORCH_DEVICES")
 
 _COMP = {"A": "T", "C": "G", "G": "C", "T": "A", "N": "N"}
 
@@ -248,19 +243,15 @@ def draw(seed: int):
     paired = rng.random() < 0.45
     interleaved = paired and rng.random() < 0.3
     fasta_in = rng.random() < 0.2
-    knobs = {"CUTADAPT_TPU_TORCH_PACK2": rng.choice(["0", "1"]),
-             "CUTADAPT_TPU_TORCH_DEVICE_STATS": rng.choice(["0", "1"])}
+    rng.choice(["0", "1"])  # the JAX tool's 2-bit-lane switch
+    knobs = {"CUTADAPT_TPU_TORCH_DEVICE_STATS": rng.choice(["0", "1"])}
     # the JAX tool's WORKERS draw: the shard count here
     knobs["CUTADAPT_TPU_TORCH_DEVICES"] = rng.choice(["1", "2", "3"])
     knobs["CUTADAPT_TPU_TORCH_EXACT_WIRE"] = rng.choice(["0", "1"])
-    knobs["CUTADAPT_TPU_TORCH_DEVICE_PREFILTER"] = rng.choice(["0", "0", "1"])
+    rng.choice(["0", "0", "1"])  # the JAX tool's device prefilter
     # small chunk sizes force multi-chunk engine runs; chunking must be
     # invisible in the results
     knobs["CUTADAPT_TPU_TORCH_CHUNK_BYTES"] = rng.choice(["", "3000", "12000"])
-    # not a draw of the JAX tool: its own generator keeps the main one's
-    # sequence
-    knobs["CUTADAPT_TPU_TORCH_SHARED_UPLOAD"] = random.Random(
-        f"{seed} shared upload").choice(["0", "1"])
     return rng, paired, interleaved, fasta_in, knobs
 
 

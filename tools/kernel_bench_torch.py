@@ -9,7 +9,7 @@ The batch is what the engine dispatches for the flagship workload
 (tests/torch_fixtures.py: ``-a ADAPTER -e 0.1 -O 3`` on 100 bp reads, a
 quarter with the adapter): ``rows`` of its reads encoded by the engine's
 own ``_encode`` in the lane and at the row width the engine picks for
-them (the task's lane, CUTADAPT_TPU_TORCH_PACK2, the exact-wire width),
+them (the task's lane, the exact-wire width),
 so neither is fixed here. ``iters`` launches are captured in a CUDA
 graph and replayed, timed with CUDA events (chip_smoke.py:cuda_ms), once
 per ``repeat``. With --device cpu the plain PyTorch version runs on the
@@ -35,7 +35,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 import cutadapt_tpu_torch.batch_pipeline as bp  # noqa: E402
-from cutadapt_tpu_torch import native, staging  # noqa: E402
+from cutadapt_tpu_torch import staging  # noqa: E402
 from cutadapt_tpu_torch.io.chunks import parse_fastq_chunk  # noqa: E402
 from cutadapt_tpu_torch.ops import align_cuda  # noqa: E402
 
@@ -46,10 +46,7 @@ def encoded_batch(engine, data: bytes, read_len: int):
     the lane and row width it picks for reads of ``read_len`` bp, on the
     engine's device."""
     task = engine.stages[-1].tasks[0]
-    if task.byte:
-        pack2 = None
-    else:
-        pack2 = bool(native.AVAILABLE and bp._pack2_on())
+    pack2 = None if task.byte else True
     width = engine._bucket_length(read_len)
     if bp._exact_wire_on(engine.device):
         width = bp._eff_width(read_len, width, pack2)
